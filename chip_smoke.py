@@ -1,28 +1,55 @@
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Device and build: require CUDA, print the card's name and power limit
-   (nvidia-smi), build the CUDA kernels from ``lpfem_torch/csrc`` and print
-   the build time.
-2. Kernel vs plain version on the card: ``sep_apply`` (float and double,
-   p = 1, 2, 4, periodic and non-periodic x, ess_top on and off, an odd Dx,
-   and the four p-multigrid lattices of the main path) against
-   ``sep_apply_reference`` on the same inputs; relative to max|y|, double
-   <= 1e-13 and float <= 1e-5. Median time per apply of each at the
-   main-path lattices, from chains of 30 applies timed with CUDA events.
-3. Main path: ``Problem(cfg, device="cuda")`` on the reference's ss.cpp
+   (nvidia-smi), build the CUDA kernels from ``lpfem_torch/csrc`` (one nvcc
+   per source, all started together) and print the build time and ptxas's
+   register report.
+2. Kernels vs plain versions on the card, relative to max|y|: double
+   <= 1e-13, float <= 1e-5.
+   - ``sep_apply`` (B1; float and double, p = 1, 2, 4, periodic and
+     non-periodic x, ess_top on and off, an odd Dx, and the four p-multigrid
+     lattices of the ss.cpp path) against ``sep_apply_reference``; time
+     per apply at the main-path lattices (device time from torch.profiler;
+     per call, the median of 5 chains of 30 applies timed with CUDA
+     events); the cuSPARSE SpMV of the assembled matrix at the
+     p=2 and p=1 lattices (p=4 has ~1.6e9 nonzeros, too many to assemble).
+   - ``pa_apply_element`` (B3b; float and double, p = 1, 2, 4 on 37
+     elements with random metric, and the three p-multigrid levels of the
+     diffraction tank with random and with the real metric) against
+     ``pa_apply_element_reference``; per level the time of the kernel alone
+     (device time from torch.profiler, and per call from CUDA events, inputs
+     rotated over more than the 50 MB L2), of the full apply
+     (gather + kernel + scatter), of the plain version, and of the cuSPARSE
+     SpMV of the assembled operator.
+3. The ss.cpp path: ``Problem(cfg, device="cuda")`` on the reference's
    strong-scaling protocol (``scaling_base``, 2 refinements, order 4, mixed
    precision, r.z <= rz0*1e-16, maxit 300, p-multigrid, Chebyshev degree 4;
    512 x 33 x 129 = 2,179,584 dofs), one warm-up step, then 10 RK4 steps =
-   40 Laplace solves. Requires a finite state, every solve converged and
-   kernel launches in the run. Then the accuracy check on the same
-   configuration: one wave period in 40 RK4 steps must end with the nodal
-   eta error below 0.1 H. (The protocol's dt = T/10 is beyond RK4's
-   stability limit for the fastest discrete free-surface modes at this
-   resolution, in the JAX reference as here; its error is printed only.)
+   40 Laplace solves with the launch counts set to 0 just before and read
+   just after. Requires a finite state, every solve converged and sep_apply
+   launches in the run. Then the accuracy check on the same configuration:
+   one wave period in 40 RK4 steps must end with the nodal eta error
+   (``eta_error_inf(quad=False)``) below 0.1 H. (The protocol's dt = T/10 is
+   beyond RK4's stability limit for the fastest discrete free-surface modes
+   at this resolution, in the JAX reference as here; its error is printed
+   only.)
+4. The wave-cylinder diffraction path at full width: the study's
+   ``Problem`` (``lpfem_torch.experiments.diffraction.build_problem``: the
+   polar half-cylinder tank, 4,224 curved hexes, 340,725 dofs at order 4,
+   three relaxation zones), one wave period at the study's dt (35 RK4 steps
+   = 140 Laplace solves) in float64, then the same 35 steps in mixed
+   precision, each with the launch counts set to 0 just before and read
+   just after. Requires every solve converged, a finite state, B3b launches
+   in both runs, 0 < max|eta| < H, and the mixed run's final eta within
+   1e-2 max|eta| of the float64 run's.
+
+Phases 3 and 4 (float64) each profile one more RK4 step with torch.profiler,
+outside the timed window: device kernel time by category and the device's
+busy share. Each phase's own time is printed.
 
 Prints one JSON line describing the kernels, then as the last line
 ``{"ok": true, "device": {...}}``. Details also go to
@@ -31,6 +58,7 @@ Prints one JSON line describing the kernels, then as the last line
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -43,25 +71,91 @@ CFG = dict(ref_levels=2, order=4, dtype="mixed", cg_rtol_sq=1e-16,
 N_STEPS = 10
 ACCURACY_STEPS = 40            # dt = T/40: inside RK4's stability limit
 EXPECTED_COLD_ITERS = 8        # data/bench-scales.txt (the JAX reference)
+CYL_STEPS = 35                 # one period at the study's dt = T/35
+CYL_DOFS = 340_725
 CHAIN = 30
+TOL = {"float32": 1e-5, "float64": 1e-13}
+
+# Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth, and the
+# non-tensor-core FMA rate of each dtype at the 700 W power limit.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
-def _time_chain(fn, x, reps=5) -> float:
-    """Median ms per call over ``reps`` chains of CHAIN calls (CUDA events)."""
+def _bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    tb = nbytes / HBM_BYTES_PER_S
+    tf = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
+def _time_chain(fn, args_list, reps=5) -> float:
+    """Median ms per call over ``reps`` chains of CHAIN calls (CUDA events);
+    call i takes ``args_list[i % len(args_list)]``."""
     import torch
-    fn(x)
+    for a in args_list:
+        fn(*a)
     torch.cuda.synchronize()
     per = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(CHAIN):
-            fn(x)
+        for i in range(CHAIN):
+            fn(*args_list[i % len(args_list)])
         b.record()
         b.synchronize()
         per.append(a.elapsed_time(b) / CHAIN)
     return statistics.median(per)
+
+
+def _device_ms(fn, args_list, kernel_names) -> float | None:
+    """Device time per call (ms) of the CUDA kernels whose names contain one
+    of ``kernel_names``, from torch.profiler over CHAIN calls; None when the
+    profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(CHAIN):
+            fn(*args_list[i % len(args_list)])
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0.0)
+             for e in prof.key_averages()
+             if any(k in e.key for k in kernel_names))
+    return us / 1e3 / CHAIN if us > 0 else None
+
+
+def _rel_err(y, y_ref) -> tuple[float, float]:
+    import torch
+    torch.cuda.synchronize()
+    abs_err = float((y - y_ref).abs().max())
+    return abs_err, abs_err / float(y_ref.abs().max())
+
+
+def _csr_cuda(A, dtype):
+    """A scipy CSR matrix as a torch sparse CSR tensor on the card."""
+    import numpy as np
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.tensor(A.indptr.astype(np.int64)),
+        torch.tensor(A.indices.astype(np.int64)),
+        torch.tensor(A.data), size=A.shape).to(device="cuda", dtype=dtype)
+
+
+def _csr_of_elements(op, dtype):
+    """The assembled element operator as a torch sparse CSR tensor, built
+    on the card (66M element-matrix entries at p=4)."""
+    import torch
+    Ae = op.element_matrices()                          # [ne, L, L] f64
+    ed = torch.as_tensor(op.space.elem_dofs, device=op.device)
+    ne, L = ed.shape
+    idx = torch.stack([ed[:, :, None].expand(ne, L, L).reshape(-1),
+                       ed[:, None, :].expand(ne, L, L).reshape(-1)])
+    A = torch.sparse_coo_tensor(idx, Ae.reshape(-1),
+                                (op.n_dofs, op.n_dofs)).coalesce()
+    return A.to_sparse_csr().to(dtype)
 
 
 def phase_device_and_build(report: dict) -> None:
@@ -75,15 +169,21 @@ def phase_device_and_build(report: dict) -> None:
           f"device {torch.cuda.get_device_name(0)}")
     from lpfem_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.load_library("sep_apply")
+    logs = _build.build_libraries(["sep_apply", "pa_apply"])
+    for name in ("sep_apply", "pa_apply"):
+        _build.load_library(name)
     secs = time.perf_counter() - t0
     report["build_s"] = secs
-    print(f"[1] built and loaded sep_apply in {secs:.2f} s "
+    print(f"[1] built and loaded sep_apply and pa_apply in {secs:.2f} s "
           f"({_build.BUILD_DIR})")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[1] ptxas {name}: {line.strip()}")
 
 
 def _main_lattices():
-    """The p-multigrid lattices of the main path (fine to coarse)."""
+    """The p-multigrid lattices of the ss.cpp path (fine to coarse)."""
     import lpfem_torch
     from lpfem_torch.space import LatticeSpace
     fine = LatticeSpace.from_config(lpfem_torch.preset("scaling_base", **CFG))
@@ -92,27 +192,25 @@ def _main_lattices():
     return spaces
 
 
-def phase_kernel_vs_plain(report: dict) -> dict:
+def phase_sep_apply(report: dict) -> dict:
     import torch
     from lpfem_torch.kernels.sep_apply import sep_apply, sep_apply_reference
     from lpfem_torch.operators import SeparableLattice
     from lpfem_torch.space import LatticeSpace, grid_lines
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    tol = {torch.float32: 1e-5, torch.float64: 1e-13}
 
     def check(space, dtype, ess, label):
         op = SeparableLattice(space, dtype, "cuda")
         x = torch.randn(space.dof_dims[::-1], generator=gen, device="cuda",
                         dtype=torch.float64).to(dtype)
         y = sep_apply(x, op.bands, op.periodic, ess)
-        y_ref = sep_apply_reference(x, op.bands, op.periodic, ess)
-        torch.cuda.synchronize()
-        abs_err = float((y - y_ref).abs().max())
-        rel = abs_err / float(y_ref.abs().max())
-        print(f"[2] {label:44s} {str(dtype)[6:]:8s} ess_top={int(ess)} "
+        abs_err, rel = _rel_err(y, sep_apply_reference(x, op.bands,
+                                                       op.periodic, ess))
+        dt = str(dtype)[6:]
+        print(f"[2] sep_apply {label:40s} {dt:8s} ess_top={int(ess)} "
               f"rel_err={rel:.2e}")
-        if not rel <= tol[dtype]:
+        if not rel <= TOL[dt]:
             raise AssertionError(f"kernel disagrees with plain version: "
                                  f"{label} {dtype} ess_top={ess}: {rel:.3e}")
         return op, x, abs_err
@@ -143,22 +241,223 @@ def phase_kernel_vs_plain(report: dict) -> dict:
                       (torch.float64, False)]
         for dtype, ess in cases:
             op, x, abs_err = check(sp, dtype, ess,
-                                   f"main level {li}: p={sp.p} {dims}")
+                                   f"ss.cpp level {li}: p={sp.p} {dims}")
             ms = _time_chain(lambda v: sep_apply(v, op.bands, op.periodic,
-                                                 ess), x)
+                                                 ess), [(x,)])
+            dev = _device_ms(lambda v: sep_apply(v, op.bands, op.periodic,
+                                                 ess), [(x,)],
+                             ("pass_x", "pass_y", "pass_z"))
             plain = _time_chain(lambda v: sep_apply_reference(
-                v, op.bands, op.periodic, ess), x)
-            row = dict(level=li, p=sp.p, dims=dims, dtype=str(dtype)[6:],
-                       ess_top=ess, ms=ms, plain_ms=plain,
-                       max_abs_err=abs_err)
+                v, op.bands, op.periodic, ess), [(x,)])
+            dt = str(dtype)[6:]
+            n, p = sp.n_dofs, sp.p
+            # input read once, output written once, the six bands; the
+            # kernel's 7(2p+1) multiply-adds per dof
+            nbytes = x.element_size() * (2 * n + 2 * (2 * p + 1)
+                                         * sum(sp.dof_dims))
+            bound, by = _bound(nbytes, 2 * 7 * (2 * p + 1) * n, dt)
+            row = dict(level=li, p=p, dims=dims, dtype=dt, ess_top=ess,
+                       ms=dev if dev is not None else ms, call_ms=ms,
+                       device_ms=dev, plain_ms=plain, max_abs_err=abs_err,
+                       bound_ms=bound, bound_by=by, library_ms=None)
+            if li in (1, 2):
+                # cuSPARSE yardstick: SpMV of the assembled matrix at this
+                # lattice (the operator without the top-plane identity)
+                A = _csr_cuda(op.assemble_scipy(), dtype)
+                xf = x.reshape(-1)
+                _, rel = _rel_err(A @ xf, sep_apply(
+                    x, op.bands, op.periodic).reshape(-1))
+                if not rel <= TOL[dt]:
+                    raise AssertionError(f"CSR SpMV disagrees: {rel:.3e}")
+                row["library_ms"] = _time_chain(lambda v: A @ v, [(xf,)])
+                row["library_nnz"] = int(A.values().numel())
+                del A
             times.append(row)
-            print(f"[2] time level {li} p={sp.p} {dims} {row['dtype']} "
-                  f"ess_top={int(ess)}: kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms per apply")
+            lib = (f", cuSPARSE SpMV {row['library_ms']:.4f} ms "
+                   f"({row['library_nnz']} nonzeros)"
+                   if row["library_ms"] is not None else "")
+            print(f"[2] time sep_apply level {li} p={p} {dims} {dt} "
+                  f"ess_top={int(ess)}: kernel {row['ms']:.4f} ms on the "
+                  f"device ({ms:.4f} ms per call, host included), plain "
+                  f"{plain:.4f} ms, bound {bound:.4f} ms ({by}){lib}")
             if li == 0 and dtype == torch.float32 and ess:
                 fine_f32 = row
-    report["apply_times"] = times
+    report["sep_apply_times"] = times
     return fine_f32
+
+
+@functools.lru_cache(maxsize=None)
+def _study_mesh():
+    """The diffraction study's default tank (built once: ~6 s of host)."""
+    from lpfem_torch.experiments.diffraction import study_mesh
+    return study_mesh()
+
+
+def _element_flops(ne: int, p1: int, q: int) -> int:
+    """Flops of the sum-factorised element apply (csrc/pa_apply.cu)."""
+    macs = 4 * p1 ** 3 * q + 6 * p1 ** 2 * q ** 2 + 6 * p1 * q ** 3
+    return ne * (2 * macs + 15 * q ** 3)
+
+
+def phase_pa_apply(report: dict) -> dict:
+    import torch
+    from lpfem_torch.cylmesh import make_half_cylinder_tank
+    from lpfem_torch.kernels.pa_apply import (pa_apply_element,
+                                              pa_apply_element_reference)
+    from lpfem_torch.operators import ElementLaplace
+    from lpfem_torch.space import CurvedLatticeSpace
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def check(u, G6q, B, D, label):
+        dt = str(u.dtype)[6:]
+        ye = pa_apply_element(u, G6q, B, D)
+        abs_err, rel = _rel_err(ye, pa_apply_element_reference(u, G6q, B, D))
+        print(f"[2] pa_apply_element {label:44s} {dt:8s} rel_err={rel:.2e}")
+        if not rel <= TOL[dt]:
+            raise AssertionError(f"kernel disagrees with plain version: "
+                                 f"{label} {dt}: {rel:.3e}")
+        return abs_err
+
+    for p in (1, 2, 4):
+        mesh = make_half_cylinder_tank(n_theta=12, n_r=6, nz=1, geom_order=p)
+        for dtype in (torch.float32, torch.float64):
+            op = ElementLaplace(CurvedLatticeSpace(mesh, p), dtype, "cuda")
+            L, Q = (p + 1) ** 3, (p + 1) ** 3
+            u = torch.randn(37, L, generator=gen, device="cuda", dtype=dtype)
+            G = torch.rand(37, 6 * Q, generator=gen, device="cuda",
+                           dtype=dtype)
+            check(u, G, op.B, op.D, f"p={p} ne=37 random metric")
+            u = torch.randn(op.G6q.shape[0], L, generator=gen, device="cuda",
+                            dtype=dtype)
+            check(u, op.G6q, op.B, op.D,
+                  f"p={p} ne={op.G6q.shape[0]} small tank metric")
+
+    fine = CurvedLatticeSpace(_study_mesh(), 4)
+    if fine.n_dofs != CYL_DOFS:
+        raise AssertionError(f"expected {CYL_DOFS} dofs, got {fine.n_dofs}")
+    times = []
+    head = None
+    for p in (4, 2, 1):
+        space = fine.with_order(p)
+        # float64 is every level of the default study, float32 every level
+        # of the mixed run's inner solves
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype)[6:]
+            op = ElementLaplace(space, dtype, "cuda")
+            ne, Q6 = op.G6q.shape
+            L = (p + 1) ** 3
+            label = f"diffraction level p={p} ne={ne}"
+            u = torch.randn(ne, L, generator=gen, device="cuda", dtype=dtype)
+            check(u, torch.rand(ne, Q6, generator=gen, device="cuda",
+                                dtype=dtype), op.B, op.D,
+                  label + " random metric")
+            abs_err = check(u, op.G6q, op.B, op.D, label + " real metric")
+            # kernel alone: inputs rotated over > 50 MB so L2 stays cold
+            nbytes_set = (2 * u.numel() + op.G6q.numel()) * u.element_size()
+            n_sets = max(1, -(-60_000_000 // nbytes_set))
+            sets = [(u.clone(), op.G6q.clone()) for _ in range(n_sets)]
+            ms = _time_chain(lambda a, g: pa_apply_element(a, g, op.B, op.D),
+                             sets)
+            dev = _device_ms(lambda a, g: pa_apply_element(a, g, op.B, op.D),
+                             sets, ("pa_element_kernel",))
+            plain = _time_chain(lambda a, g: pa_apply_element_reference(
+                a, g, op.B, op.D), sets[:1])
+            x = torch.randn(space.n_dofs, generator=gen, device="cuda",
+                            dtype=dtype)
+            full = _time_chain(op.apply, [(x,)])
+            A = _csr_of_elements(op, dtype)
+            _, rel = _rel_err(A @ x, op.apply(x))
+            if not rel <= TOL[dt]:
+                raise AssertionError(f"CSR SpMV disagrees with the element "
+                                     f"apply: {rel:.3e}")
+            csr = _time_chain(lambda v: A @ v, [(x,)])
+            nnz = int(A.values().numel())
+            del A, sets
+            q = p + 1
+            bound, by = _bound(
+                u.element_size() * (2 * ne * L + ne * Q6 + 2 * q * (p + 1)),
+                _element_flops(ne, p + 1, q), dt)
+            row = dict(p=p, ne=ne, dtype=dt,
+                       ms=dev if dev is not None else ms, call_ms=ms,
+                       device_ms=dev,
+                       plain_ms=plain, full_apply_ms=full,
+                       library_full_apply_ms=csr, library_nnz=nnz,
+                       max_abs_err=abs_err, bound_ms=bound, bound_by=by,
+                       flops=_element_flops(ne, p + 1, q))
+            times.append(row)
+            print(f"[2] time pa_apply_element p={p} ne={ne} {dt}: kernel "
+                  f"{row['ms']:.4f} ms on the device ({ms:.4f} ms per call, "
+                  f"host included), plain {plain:.4f} "
+                  f"ms, bound {bound:.4f} ms ({by}); full apply {full:.4f} "
+                  f"ms vs cuSPARSE SpMV {csr:.4f} ms ({nnz} nonzeros)")
+            if p == 4 and dtype == torch.float32:
+                head = row
+            torch.cuda.empty_cache()
+    report["pa_apply_times"] = times
+    return head
+
+
+_CATEGORIES = (("B3b pa_apply_element", ("pa_element_kernel",)),
+               ("B1 sep_apply", ("pass_x", "pass_y", "pass_z")),
+               ("matmul", ("gemm", "gemv", "Gemm", "Gemv", "cutlass",
+                           "dot_kernel", "splitKreduce")),
+               ("reductions", ("reduce", "Reduce")),
+               ("elementwise", ("elementwise", "Elementwise", "vectorized")))
+
+
+def _profile_step(prob, state, t0: float) -> dict:
+    """One RK4 step under torch.profiler (outside every timed window):
+    device kernel time by category, kernel count, and the device busy share
+    (union of kernel intervals over the step's wall)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    # device activity only: host-op events would multiply the ~10^5 events
+    # of a diffraction step that the profiler processes on the host
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_wall = time.perf_counter()
+        prob.run(n_steps=1, t0=t0, state=state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_wall
+    spans = []
+    cats = {name: [0.0, 0] for name, _ in _CATEGORIES}
+    cats["copies, cat, index, fill"] = [0.0, 0]
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        name = next((c for c, keys in _CATEGORIES
+                     if any(k in e.name for k in keys)),
+                    "copies, cat, index, fill")
+        cats[name][0] += (b - a) / 1e3
+        cats[name][1] += 1
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    total = sum(v[0] for v in cats.values())
+    return dict(wall_ms=1e3 * wall, device_ms=total,
+                busy_share=busy / 1e3 / (1e3 * wall), kernels=len(spans),
+                by_category={k: dict(ms=v[0], share=v[0] / total if total
+                                     else 0.0, kernels=v[1])
+                             for k, v in cats.items()})
+
+
+def _print_profile(tag: str, prof: dict) -> None:
+    print(f"{tag} profiled RK4 step: wall {prof['wall_ms']:.1f} ms "
+          f"(profiler on), device kernel time {prof['device_ms']:.2f} ms, "
+          f"busy share {prof['busy_share']:.3f}, {prof['kernels']} kernels")
+    for k, v in sorted(prof["by_category"].items(),
+                       key=lambda kv: -kv[1]["ms"]):
+        print(f"{tag}   {k:26s} {v['ms']:9.3f} ms  {v['share']:.3f}  "
+              f"{v['kernels']} kernels")
 
 
 def _sync_round_trip_us(reps: int = 200) -> float:
@@ -171,10 +470,21 @@ def _sync_round_trip_us(reps: int = 200) -> float:
     return (time.perf_counter() - t0) / reps * 1e6
 
 
-def phase_main_path(report: dict) -> int:
+def _zero_counts():
+    from lpfem_torch.kernels import pa_apply, sep_apply
+    sep_apply.LAUNCHES = 0
+    pa_apply.LAUNCHES = 0
+
+
+def _read_counts() -> dict:
+    from lpfem_torch.kernels import pa_apply, sep_apply
+    return {"sep_apply": sep_apply.LAUNCHES,
+            "pa_apply_element": pa_apply.LAUNCHES}
+
+
+def phase_ss_path(report: dict) -> int:
     import torch
     import lpfem_torch
-    from lpfem_torch.kernels import sep_apply as ksep
 
     cfg = lpfem_torch.preset("scaling_base", **CFG)
     t0 = time.perf_counter()
@@ -200,12 +510,13 @@ def phase_main_path(report: dict) -> int:
 
     prob.run(n_steps=1)                                   # warm-up
     torch.cuda.synchronize()
-    ksep.LAUNCHES = 0
+    _zero_counts()
     t0 = time.perf_counter()
     t, y, phi = prob.run(n_steps=N_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ksep.LAUNCHES
+    counts = _read_counts()
+    launches = counts["sep_apply"]
     stats = prob.last_solver_stats
     prob.check_state(y, phi)
     if stats.unconverged:
@@ -214,29 +525,35 @@ def phase_main_path(report: dict) -> int:
         raise AssertionError(f"expected {4 * N_STEPS} solves, ran "
                              f"{stats.n_solves} (the run stopped early)")
     if launches <= 0:
-        raise AssertionError("the main path launched no sep_apply kernel")
-    err_protocol = prob.eta_error_inf(y, t)
+        raise AssertionError("the ss.cpp path launched no sep_apply kernel")
+    err_protocol = prob.eta_error_inf(y, t, quad=False)
     print(f"[3] protocol run ends at t = {t:.6f} (T = {prob.t_final:.6f}); "
-          f"eta error inf {err_protocol:.3e} (dt = T/{N_STEPS} is beyond "
-          "RK4's stability limit for the fastest discrete surface modes at "
-          "this resolution, so this number is not an accuracy check)")
+          f"nodal eta error inf {err_protocol:.3e} (dt = T/{N_STEPS} is "
+          "beyond RK4's stability limit for the fastest discrete surface "
+          "modes at this resolution, so this number is not an accuracy "
+          "check)")
     rate = n * 4 * N_STEPS / wall
     sync_us = _sync_round_trip_us()
     print(f"[3] {N_STEPS} RK4 steps = {stats.n_solves} solves: wall "
           f"{wall:.3f} s, {rate:.4e} dof*solves/s, {stats.total_iters} "
           f"inner CG iterations (max {stats.max_iters} per solve), "
           f"{stats.syncs} host syncs ({stats.syncs / stats.n_solves:.1f} per "
-          f"solve, idle round trip {sync_us:.1f} us each), "
-          f"{launches} sep_apply launches")
-    report["main_path"] = dict(
+          f"solve, idle round trip {sync_us:.1f} us each), launches {counts}")
+    report["ss_path"] = dict(
         dofs=n, surface_dofs=ns, setup_s=setup, wall_s=wall,
         dof_solves_per_s=rate, n_solves=stats.n_solves,
         cold_solve_iters=cold.iters, expected_cold_iters=EXPECTED_COLD_ITERS,
         total_inner_iters=stats.total_iters, max_iters=stats.max_iters,
-        syncs=stats.syncs, sync_round_trip_us=sync_us,
-        sep_apply_launches=launches, eta_error_inf_protocol=err_protocol,
-        t=t, lmax=prob.precond.lmax,
+        syncs=stats.syncs, sync_round_trip_us=sync_us, launches=counts,
+        eta_error_inf_protocol=err_protocol, t=t, lmax=prob.precond.lmax,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    y0, phi0 = prob.initial_state()
+    prof = _profile_step(prob, (y0, phi0), 0.0)
+    prof["busy_share_unprofiled"] = prof["device_ms"] / (1e3 * wall / N_STEPS)
+    _print_profile("[3]", prof)
+    print(f"[3] device time over the unprofiled step wall "
+          f"{prof['busy_share_unprofiled']:.3f}")
+    report["ss_path"]["profile"] = prof
 
     # accuracy: the same configuration over one period at a stable step
     acc = lpfem_torch.Problem(
@@ -247,38 +564,139 @@ def phase_main_path(report: dict) -> int:
     if acc.last_solver_stats.unconverged:
         raise AssertionError(f"a solve did not converge: "
                              f"{acc.last_solver_stats}")
-    err = acc.eta_error_inf(y, t)
+    err = acc.eta_error_inf(y, t, quad=False)
     print(f"[3] accuracy run, {ACCURACY_STEPS} RK4 steps over one period: "
-          f"t = {t:.6f} (T = {acc.t_final:.6f}), eta error inf {err:.3e} "
-          f"(limit 0.1 H = {0.1 * cfg.H:.1e}), "
+          f"t = {t:.6f} (T = {acc.t_final:.6f}), nodal eta error inf "
+          f"{err:.3e} (limit 0.1 H = {0.1 * cfg.H:.1e}), "
           f"{acc.last_solver_stats.total_iters} inner CG iterations")
     if not (abs(t - acc.t_final) < 1e-9 * acc.t_final and err < 0.1 * cfg.H):
         raise AssertionError(f"eta error {err} at t={t} fails 0.1 H")
-    report["accuracy"] = dict(nsteps=ACCURACY_STEPS, eta_error_inf=err, t=t,
-                              total_inner_iters=acc.last_solver_stats
+    report["accuracy"] = dict(nsteps=ACCURACY_STEPS, eta_error_inf_nodal=err,
+                              t=t, total_inner_iters=acc.last_solver_stats
                               .total_iters)
     return launches
 
 
+def phase_diffraction(report: dict) -> int:
+    import torch
+    from lpfem_torch.experiments.diffraction import build_problem
+
+    mesh = _study_mesh()
+    runs = {}
+    for dtype in ("float64", "mixed"):
+        t0 = time.perf_counter()
+        prob = build_problem("cuda", dtype=dtype, mesh=mesh)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        n, ns = prob.space.n_dofs, prob.surf.n_dofs
+        if n != CYL_DOFS:
+            raise AssertionError(f"expected {CYL_DOFS} dofs, got {n}")
+        coarse = ("dense" if prob.precond._coarse_inv is not None
+                  else "Chebyshev-16")
+        print(f"[4] {dtype}: setup {setup:.2f} s: {prob.space.mesh.n_elems} "
+              f"curved hexes, {n} dofs {prob.space.dof_dims}, {ns} surface "
+              f"dofs, p-MG orders {prob.precond.orders}, coarse {coarse}, "
+              f"T = {prob.wave.T:.5f}, dt = {prob.dt:.5f}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        t, y, phi = prob.run(n_steps=CYL_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        stats = prob.last_solver_stats
+        prob.check_state(y, phi)
+        if stats.unconverged:
+            raise AssertionError(f"a solve did not converge: {stats}")
+        if stats.n_solves != 4 * CYL_STEPS:
+            raise AssertionError(f"expected {4 * CYL_STEPS} solves, ran "
+                                 f"{stats.n_solves}")
+        if counts["pa_apply_element"] <= 0:
+            raise AssertionError("the diffraction path launched no "
+                                 "pa_apply_element kernel")
+        eta = y[:ns].double()
+        amax = float(eta.abs().max())
+        if not 0.0 < amax < prob.cfg.H:
+            raise AssertionError(f"max|eta| = {amax} outside (0, H)")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[4] {dtype}: {CYL_STEPS} RK4 steps = {stats.n_solves} solves "
+              f"to t = {t:.5f}: wall {wall:.3f} s, {stats.total_iters} inner "
+              f"CG iterations (max {stats.max_iters} per solve), "
+              f"{stats.syncs} host syncs, launches {counts}, max|eta| "
+              f"{amax:.5f}, peak device memory {peak / 1e6:.0f} MB")
+        prof = None
+        if dtype == "float64":
+            prof = _profile_step(prob, (y, phi), t)
+            prof["busy_share_unprofiled"] = (
+                prof["device_ms"] / (1e3 * wall / CYL_STEPS))
+            _print_profile(f"[4] {dtype}:", prof)
+            print(f"[4] {dtype}: device time over the unprofiled step wall "
+                  f"{prof['busy_share_unprofiled']:.3f}")
+        runs[dtype] = dict(eta=eta.cpu(), record=dict(profile=prof,
+            dofs=n, surface_dofs=ns, setup_s=setup, wall_s=wall,
+            n_solves=stats.n_solves, total_inner_iters=stats.total_iters,
+            max_iters=stats.max_iters, syncs=stats.syncs, launches=counts,
+            max_abs_eta=amax, t=t, peak_mem_bytes=peak,
+            lmax=prob.precond.lmax))
+        del prob, y, phi
+        torch.cuda.empty_cache()
+    d = float((runs["mixed"]["eta"] - runs["float64"]["eta"]).abs().max())
+    amax = runs["float64"]["record"]["max_abs_eta"]
+    print(f"[4] mixed vs float64 final eta: max abs diff {d:.3e} "
+          f"(limit 1e-2 max|eta| = {1e-2 * amax:.3e})")
+    if not d <= 1e-2 * amax:
+        raise AssertionError(f"mixed run's eta differs by {d}")
+    report["diffraction"] = {k: v["record"] for k, v in runs.items()}
+    report["diffraction"]["mixed_vs_f64_max_abs_diff"] = d
+    return sum(v["record"]["launches"]["pa_apply_element"]
+               for v in runs.values())
+
+
 def main() -> int:
+    import warnings
+    # torch's notes that sparse CSR is beta / unchecked (the yardsticks)
+    warnings.filterwarnings("ignore", message="Sparse")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
     import lpfem_torch  # noqa: F401  (fails here when run outside a checkout)
-    report: dict = {}
-    phase_device_and_build(report)
-    fine = phase_kernel_vs_plain(report)
-    launches = phase_main_path(report)
-    kernels = {"kernels": [{
-        "name": "sep_apply", "route": "cuda",
-        "source": "lpfem_torch/csrc/sep_apply.cu",
-        "replaces": "lpfem/kernels/sep_apply.py:230",
-        "launches": launches, "max_abs_err": fine["max_abs_err"],
-        "ms": fine["ms"], "plain_ms": fine["plain_ms"]}]}
+    report: dict = {"phase_s": {}}
+    t_start = time.perf_counter()
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn(report)
+        report["phase_s"][name] = time.perf_counter() - t0
+        print(f"[{name[0]}] phase {name} took "
+              f"{report['phase_s'][name]:.1f} s")
+        return out
+
+    timed("1 build", phase_device_and_build)
+    sep = timed("2 sep_apply", phase_sep_apply)
+    pa = timed("2 pa_apply", phase_pa_apply)
+    sep_launches = timed("3 ss.cpp path", phase_ss_path)
+    pa_launches = timed("4 diffraction", phase_diffraction)
+    report["total_s"] = time.perf_counter() - t_start
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    kernels = {"kernels": [
+        dict(name="sep_apply", route="cuda",
+             source="lpfem_torch/csrc/sep_apply.cu",
+             replaces="lpfem/kernels/sep_apply.py:230",
+             launches=sep_launches, **{k: sep[k] for k in keys}),
+        dict(name="pa_apply_element", route="cuda",
+             source="lpfem_torch/csrc/pa_apply.cu",
+             replaces="lpfem/kernels/pa_apply.py:124",
+             launches=pa_launches, library_ms=None,
+             full_apply_ms=pa["full_apply_ms"],
+             library_full_apply_ms=pa["library_full_apply_ms"],
+             **{k: pa[k] for k in keys if k != "library_ms"})]}
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(f"total {report['total_s']:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,12 @@
 """Carry state and smoother tables between ``lpfem`` and this package.
 
-The volume numbering is the same in both (``ix + Dx*(iy + Dy*iz)``), but
-``lpfem``'s surface state ``[eta; phi_fs]`` is in the topological order of its
-``SurfaceSpace`` (``build_quad_dofs``), while here the surface is the top
-plane in lattice order: surface dof ``s`` of ``lpfem`` is lattice-plane dof
+The volume numbering is the same in both (``ix + Dx*(iy + Dy*iz)``) on
+either lattice — the Cartesian tank (``LatticeSpace``) and a curved
+generator-declared lattice (``CurvedLatticeSpace``, lpfem's
+``_renumber_from_lattice``) — but ``lpfem``'s surface state
+``[eta; phi_fs]`` is in the topological order of its ``SurfaceSpace(attr=2)``
+(``build_quad_dofs``), while here the surface is the top plane in lattice
+order: surface dof ``s`` of ``lpfem`` is lattice-plane dof
 ``surf_to_vol[s] - Dx*Dy*(Dz-1)``. Everything is NumPy in and out; nothing
 here imports ``lpfem`` or ``jax`` — pass ``np.asarray`` of their arrays.
 """

@@ -16,13 +16,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["load_library", "build_libraries", "BUILD_DIR", "CSRC_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lpfem_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -38,24 +38,44 @@ def _nvcc() -> str:
     return found
 
 
+def _lib_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_libraries(names) -> dict[str, str]:
+    """Compile every missing ``csrc/<name>.cu`` with one nvcc process per
+    source, all started together; returns nvcc's output per name (its
+    register / spill report when ``-Xptxas -v`` is in ``NVCC_FLAGS``)."""
+    procs = {}
+    for name in names:
+        lib_path = _lib_path(name)
+        if lib_path.exists() or name in procs:
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, lib_path)
+    out = {}
+    for name, (proc, tmp, lib_path) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{text}")
+        os.replace(tmp, lib_path)
+        out[name] = text
+    return out
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, then load it
     (once per process)."""
     if name in _loaded:
         return _loaded[name]
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    build_libraries([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
     _loaded[name] = lib
     return lib

@@ -18,6 +18,7 @@ identity rows and columns on the top z-plane.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -98,6 +99,17 @@ def _check(x: torch.Tensor, bands, periodic) -> int:
     return p
 
 
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    """The library's C entry for ``dtype`` (built at first use)."""
+    from ._build import load_library
+    lib = load_library("sep_apply")
+    fn = lib.sep_apply_f32 if dtype == torch.float32 else lib.sep_apply_f64
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def sep_apply(x: torch.Tensor, bands, periodic,
               ess_top: bool = False) -> torch.Tensor:
     """``A x`` on ``x [Dz, Dy, Dx]``: the CUDA kernel for a CUDA tensor, the
@@ -108,11 +120,7 @@ def sep_apply(x: torch.Tensor, bands, periodic,
     if x.device.type != "cuda":
         raise ValueError(f"sep_apply: unsupported device {x.device}")
     p = _check(x, bands, periodic)
-    from ._build import load_library
-    lib = load_library("sep_apply")
-    fn = lib.sep_apply_f32 if x.dtype == torch.float32 else lib.sep_apply_f64
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = _entry(x.dtype)
     Dz, Dy, Dx = x.shape
     with torch.cuda.device(x.device):
         y = torch.empty_like(x)

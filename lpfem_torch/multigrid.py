@@ -1,12 +1,17 @@
 """p-multigrid preconditioner with Chebyshev-Jacobi smoothing.
 
-Counterpart of ``lpfem.multigrid`` on the structured lattice: the same mesh
-at orders p -> p/2 -> ... -> 1, then h-coarsened p=1 levels (2x2x2 element
-merges) while the bottom level is above ``max(coarse_dense_limit,
-h_coarsen_min_dofs)``; per-axis dense interpolation transfers; a
-Chebyshev(degree k) Jacobi smoother on every level; a dense-inverse coarse
-solve (inverted in float64 on the host) up to ``coarse_dense_limit`` dofs,
-else Chebyshev-16. The essential set is the top z-plane on every level.
+Counterpart of ``lpfem.multigrid`` on the structured lattices, over either
+operator (:class:`~lpfem_torch.operators.SeparableLattice` on the Cartesian
+tank, :class:`~lpfem_torch.operators.ElementLaplace` on a curved lattice):
+the same mesh and geometry at orders p -> p/2 -> ... -> 1, then h-coarsened
+p=1 levels (2x2x2 element merges, Cartesian lattices only) while the bottom
+level is above ``max(coarse_dense_limit, h_coarsen_min_dofs)``; per-axis
+dense interpolation transfers (the lattice fast path of ``lpfem/
+multigrid.py:301-316``, which acts in reference space and so serves curved
+lattices unchanged); a Chebyshev(degree k) Jacobi smoother on every level; a
+dense-inverse coarse solve (inverted in float64 on the host) up to
+``coarse_dense_limit`` dofs, else Chebyshev-16. The essential set is the top
+z-plane on every level.
 
 ``estimate_lmax`` starts from a seeded ``torch.Generator``; the reference
 starts from ``jax.random.normal(PRNGKey(0))``, which cannot be reproduced,
@@ -19,8 +24,7 @@ import numpy as np
 import torch
 
 from .elements import basis_1d, lagrange_eval
-from .operators import SeparableLattice
-from .space import LatticeSpace
+from .operators import ElementLaplace, SeparableLattice
 
 __all__ = ["ChebyshevSmoother", "PMultigrid", "estimate_lmax"]
 
@@ -96,9 +100,9 @@ class _Level:
     """One hierarchy level: operator with the top-plane constraint, the
     free-dof mask and the constrained Jacobi inverse diagonal."""
 
-    def __init__(self, op: SeparableLattice):
+    def __init__(self, op: SeparableLattice | ElementLaplace):
         self.op = op
-        dev = op.Kx.device
+        dev = op.device
         top = op.space.top_plane_dofs()
         free = np.ones(op.n_dofs)
         free[top] = 0.0
@@ -113,7 +117,7 @@ class _Transfer:
     """Embedded interpolation P = Pz (x) Py (x) Px between two lattice
     levels, as three dense per-axis contractions; restriction is P^T."""
 
-    def __init__(self, fine: LatticeSpace, coarse: LatticeSpace, pc: int,
+    def __init__(self, fine, coarse, pc: int,
                  pf: int, elem_dims, dtype, device):
         self.P1z, self.P1y, self.P1x = (
             torch.tensor(_axis_interp(elem_dims[a], pc, pf,
@@ -149,12 +153,14 @@ class PMultigrid:
     separate estimate on the same operator returns.
     """
 
-    def __init__(self, fine_op: SeparableLattice, smooth_degree: int = 3,
+    def __init__(self, fine_op: SeparableLattice | ElementLaplace,
+                 smooth_degree: int = 3,
                  coarse_dense_limit: int = 6000, coarse_cheb_degree: int = 16,
                  h_coarsen_min_dofs: int = 20000,
                  lmax: list[float] | None = None):
         space = fine_op.space
-        dtype, device = fine_op.dtype, fine_op.Kx.device
+        dtype, device = fine_op.dtype, fine_op.device
+        op_cls = type(fine_op)
         orders = []
         q = space.p
         while q > 1:
@@ -163,8 +169,7 @@ class PMultigrid:
         orders.append(1)
         self.orders = orders
 
-        ops = [fine_op] + [SeparableLattice(space.with_order(pl), dtype,
-                                            device)
+        ops = [fine_op] + [op_cls(space.with_order(pl), dtype, device)
                            for pl in orders[1:]]
         self.levels = [_Level(op) for op in ops]
         self.transfers = [
@@ -182,7 +187,7 @@ class PMultigrid:
             sp_c = bot.coarsen()
             if sp_c is None:
                 break
-            self.levels.append(_Level(SeparableLattice(sp_c, dtype, device)))
+            self.levels.append(_Level(op_cls(sp_c, dtype, device)))
             self.transfers.append(_Transfer(bot, sp_c, 1, 2, sp_c.elem_dims,
                                             dtype, device))
             self.orders = self.orders + [1]

@@ -1,11 +1,19 @@
-"""Problem assembly: Config -> lattice -> operators -> RK4 time loop.
+"""Problem assembly: Config (+ mesh) -> lattice -> operators -> RK4 time loop.
 
 Counterpart of ``lpfem.problem.Problem`` for the configurations this package
-covers: the generated Cartesian tanks (``periodic_tank``, ``finite_tank``)
-without relaxation zones, the banded Kronecker operator, Jacobi / Chebyshev
-/ p-multigrid preconditioning, ``dtype`` float64, float32 or mixed (float64
-state and outer residual, float32 inner solve). Anything else raises
-``NotImplementedError`` with the reason.
+covers:
+
+- the generated Cartesian tanks (``periodic_tank``, ``finite_tank``), on the
+  banded Kronecker operator (:class:`~lpfem_torch.operators.
+  SeparableLattice`);
+- a mesh passed in whose generator declares an element lattice (the curved
+  half-cylinder tank of ``lpfem_torch.cylmesh``), on the element operator
+  (:class:`~lpfem_torch.operators.ElementLaplace`);
+
+with Jacobi / Chebyshev / p-multigrid preconditioning, relaxation zones, the
+wave by modes, period or wavelength, and ``dtype`` float64, float32 or mixed
+(float64 state and outer residual, float32 inner solve). Anything else
+raises ``NotImplementedError`` with the reason.
 """
 
 from __future__ import annotations
@@ -18,23 +26,23 @@ import torch
 from . import resolve_device, state_dtypes
 from .analytic import AiryWave
 from .configs import Config
+from .mesh import Mesh
 from .multigrid import ChebyshevSmoother, PMultigrid, estimate_lmax
-from .operators import SeparableLattice
-from .space import LatticeSpace, SurfaceSpace
-from .surface import FreeSurfaceOperator, SolveCarry, SolveStats
+from .operators import ElementLaplace, SeparableLattice
+from .space import CurvedLatticeSpace, LatticeSpace, SurfaceSpace
+from .surface import (FreeSurfaceOperator, RelaxationZones, SolveCarry,
+                      SolveStats, cabs_weight, cgen_weight)
 from .timestep import rk4_run
 
-__all__ = ["Problem"]
+__all__ = ["Problem", "build_wave"]
 
 
-def _check_supported(cfg: Config) -> None:
-    if cfg.mesh_kind not in ("periodic_tank", "finite_tank"):
+def _check_supported(cfg: Config, mesh: Mesh | None) -> None:
+    if mesh is None and cfg.mesh_kind not in ("periodic_tank", "finite_tank"):
         raise NotImplementedError(
             f"mesh_kind={cfg.mesh_kind!r}: only the generated Cartesian tanks "
-            "are ported; general meshes need the topological space port")
-    if cfg.relax:
-        raise NotImplementedError("relax=True: relaxation zones are not "
-                                  "ported yet")
+            "and meshes with a declared element lattice are ported; general "
+            "meshes need the topological space port (ROADMAP A8)")
     if cfg.hi_apply == "ds":
         raise NotImplementedError("hi_apply='ds': the double-single outer "
                                   "loop is not ported (the GPU runs native "
@@ -44,39 +52,75 @@ def _check_supported(cfg: Config) -> None:
     if cfg.apply_mode == "assembled":
         raise NotImplementedError("apply_mode='assembled': the assembled "
                                   "SpMV operator is not ported yet")
-    if cfg.wave_by != "modes":
-        raise NotImplementedError(f"wave_by={cfg.wave_by!r}: only the "
-                                  "periodic-tank wave ('modes') is ported")
+    if cfg.wave_by not in ("modes", "period", "wavelength"):
+        raise ValueError(f"unknown wave_by {cfg.wave_by!r}")
     if cfg.precond not in ("jacobi", "chebyshev", "pmg"):
         raise ValueError(f"unknown precond {cfg.precond!r}")
+
+
+def build_wave(cfg: Config, bbmin, bbmax) -> AiryWave:
+    """The configured Airy wave on a tank with bounding box (bbmin, bbmax)
+    (``lpfem.problem.build_wave``, ``lpfem/problem.py:44-65``)."""
+    h = float(bbmax[2] - bbmin[2])
+    z_top = float(bbmax[2])
+    if cfg.wave_by == "modes":
+        Lx = float(bbmax[0] - bbmin[0])
+        return AiryWave.from_modes(H=cfg.H, m=cfg.wave_m, Lx=Lx, h=h,
+                                   g=cfg.g, theta=cfg.theta, z_top=z_top)
+    if cfg.wave_by == "period":
+        return AiryWave.from_period(H=cfg.H, T=cfg.wave_T, h=h, g=cfg.g,
+                                    theta=cfg.theta, z_top=z_top)
+    k = 2.0 * np.pi / cfg.wave_lambda
+    if cfg.kh_override is not None:
+        # the flagship convention (``Solvers/PF_linear_par_partial.cpp:
+        # 297-302``): k from lambda, kh pinned, so the Airy fields use the
+        # effective depth h_eff = kh / k
+        return AiryWave(H=cfg.H, k=k, h=cfg.kh_override / k, g=cfg.g,
+                        theta=cfg.theta, z_top=z_top)
+    return AiryWave(H=cfg.H, k=k, h=h, g=cfg.g, theta=cfg.theta, z_top=z_top)
 
 
 class Problem:
     """A fully assembled LPF wave problem on one device."""
 
-    def __init__(self, cfg: Config, device="cuda", lmax=None):
+    def __init__(self, cfg: Config, device="cuda", lmax=None,
+                 mesh: Mesh | None = None):
         """``device``: where every tensor lives (no global default; a missing
         GPU raises). ``lmax``: per-level smoother lambda_max for the
-        p-multigrid (parity runs inject the reference's)."""
-        _check_supported(cfg)
+        p-multigrid (parity runs inject the reference's). ``mesh``: a mesh
+        with a declared element lattice (the curved cylinder tank) instead
+        of the configured Cartesian tank."""
+        _check_supported(cfg, mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mixed = cfg.dtype == "mixed"
         self.dtype, op_dtype = state_dtypes(cfg.dtype)
-        self.space = LatticeSpace.from_config(cfg)
+        if mesh is None:
+            self.space = LatticeSpace.from_config(cfg)
+            op_cls = SeparableLattice
+        else:
+            self.space = CurvedLatticeSpace(mesh, cfg.order)
+            op_cls = ElementLaplace
         self.surf = SurfaceSpace(self.space)
-        lz = self.space.lines[2]
-        self.wave = AiryWave.from_modes(
-            H=cfg.H, m=cfg.wave_m, Lx=float(self.space.lines[0][-1]
-                                            - self.space.lines[0][0]),
-            h=float(lz[-1] - lz[0]), g=cfg.g, theta=cfg.theta,
-            z_top=float(lz[-1]))
-        self.op = SeparableLattice(self.space, op_dtype, self.device,
-                                   q=cfg.quad)
-        self.op_hi = (SeparableLattice(self.space, torch.float64, self.device,
-                                       q=cfg.quad) if self.mixed else None)
+        bbmin, bbmax = self.space.bounding_box()
+        self.wave = build_wave(cfg, bbmin, bbmax)
+        self.op = op_cls(self.space, op_dtype, self.device, q=cfg.quad)
+        self.op_hi = (op_cls(self.space, torch.float64, self.device,
+                             q=cfg.quad) if self.mixed else None)
         self.dt = float(cfg.t_final_periods * self.wave.T / cfg.nsteps)
         self.t_final = float(cfg.t_final_periods * self.wave.T)
+
+        self.relax = None
+        if cfg.relax:
+            X = self.surf.node_coords[:, 0]
+            lam = self.wave.wavelength
+            cgen = cgen_weight(X, float(bbmin[0]),
+                               float(bbmin[0]) + cfg.Ng * lam)
+            cabs = cabs_weight(X, float(bbmax[0]) - cfg.Ns * lam,
+                               float(bbmax[0]), p=cfg.abs_power)
+            self.relax = RelaxationZones.build(
+                self.surf, self.wave, tau=self.dt, cgen=cgen, cabs=cabs,
+                n_ramp=cfg.n_ramp, dtype=self.dtype, device=self.device)
 
         precond_fn = None
         if cfg.precond == "pmg":
@@ -99,7 +143,7 @@ class Problem:
             cg_atol_sq=cfg.cg_atol_sq, cg_max_iter=cfg.cg_max_iter,
             precond_fn=precond_fn, op_hi=self.op_hi,
             ir_max_outer=cfg.ir_max_outer,
-            ir_inner_rtol_sq=cfg.ir_inner_rtol_sq)
+            ir_inner_rtol_sq=cfg.ir_inner_rtol_sq, relax=self.relax)
         self.last_solver_stats = None
         self._last_ok = None
 
@@ -120,15 +164,18 @@ class Problem:
         return y0, phi0
 
     # ------------------------------------------------------------------- run
-    def run(self, n_steps: int | None = None, t0: float = 0.0, state=None):
-        """RK4 loop. Returns (t, y, phi). After the run
+    def run(self, n_steps: int | None = None, t0: float = 0.0, state=None,
+            record=None):
+        """RK4 loop. Returns (t, y, phi). ``record(t, y, aux)`` is called
+        after every step (lpfem's per-step record hook). After the run
         ``last_solver_stats`` holds the solver telemetry; an unconverged
         stage emits a ``RuntimeWarning`` (MFEM's "No convergence!")."""
         if n_steps is None:
             n_steps = self.cfg.nsteps
         y0, phi0 = state if state is not None else self.initial_state(t0)
         aux0 = SolveCarry(phi0, SolveStats())
-        (t, y, aux), ok = rk4_run(self.fso, y0, aux0, t0, self.dt, n_steps)
+        (t, y, aux), ok = rk4_run(self.fso, y0, aux0, t0, self.dt, n_steps,
+                                  record=record)
         self._last_ok = ok
         self.last_solver_stats = aux.stats
         if aux.stats.unconverged:
@@ -153,14 +200,18 @@ class Problem:
 
     # ----------------------------------------------------------------- errors
     def eta_error_inf(self, y: torch.Tensor, t: float,
-                      quad: bool = False) -> float:
-        """Max-norm nodal error of eta against the analytic wave at time t
-        (the dynamic-accuracy metric of
-        ``Convergence_and_Scaling/convergence-parallel.cpp:249-281``)."""
-        if quad:
-            raise NotImplementedError("the quadrature-point max error is not "
-                                      "ported yet; use quad=False (nodal)")
+                      quad: bool = True) -> float:
+        """Max-norm error of eta against the analytic wave at time t — the
+        dynamic-accuracy metric of
+        ``Convergence_and_Scaling/convergence-parallel.cpp:249-281``.
+        ``quad=True`` (default, as lpfem) takes the max over the surface
+        elements' integration points (MFEM ``ComputeMaxError``,
+        :meth:`~lpfem_torch.space.SurfaceSpace.max_error_quad`);
+        ``quad=False`` the nodal max."""
         eta = y[:self.surf.n_dofs].detach().to("cpu", torch.float64).numpy()
         w = self.wave
+        if quad:
+            return self.surf.max_error_quad(
+                eta, lambda x, yy, z: w.eta(x, yy, t))
         ex = self.surf.project(lambda x, yy, z: w.eta(x, yy, t))
         return float(np.max(np.abs(eta - ex)))

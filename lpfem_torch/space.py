@@ -1,14 +1,22 @@
-"""Structured H1 dof lattice of a Cartesian wave tank.
+"""Structured H1 dof lattices: the Cartesian tank and the curved lattice.
 
-Counterpart of the structured numbering of ``lpfem.space.H1Space``
-(``_try_structured_renumber``): on a tensor-product hex mesh the H1 dofs of
-order ``p`` sit on the global GLL lattice, numbered ``ix + Dx*(iy + Dy*iz)``.
-Here that lattice is built straight from the grid lines of the
-``make_cartesian3d`` / ``make_wave_tank`` box ``[0,Lx]x[0,Ly]x[0,Lz]`` after
-``ref_levels`` uniform refinements, without the topological numbering that
-general meshes need (and that takes minutes of host time at the scaling
-sizes). ``SurfaceSpace`` is the free surface: the top z-plane, in lattice
-order.
+Counterpart of the structured numberings of ``lpfem.space.H1Space``. Two
+spaces share one dof layout, ``ix + Dx*(iy + Dy*iz)`` on the global GLL
+lattice, and one element order, lattice-major ``ex + nex*(ey + ney*ez)``:
+
+- :class:`LatticeSpace` (``_try_structured_renumber``): the
+  ``make_cartesian3d`` / ``make_wave_tank`` box ``[0,Lx]x[0,Ly]x[0,Lz]`` after
+  ``ref_levels`` uniform refinements, built straight from its grid lines,
+  without the topological numbering that general meshes need (and that
+  takes minutes of host time at the scaling sizes).
+- :class:`CurvedLatticeSpace` (``_renumber_from_lattice``,
+  ``lpfem/space.py:330-377``): a mesh whose generator declares a logical
+  element lattice (``Mesh.elem_lattice``), such as the polar half-cylinder
+  block of ``lpfem_torch.cylmesh``, with per-element (possibly curved)
+  geometry nodes.
+
+``SurfaceSpace`` is the free surface of either: the top z-plane, in lattice
+order, with its quad elements for the quadrature-point error metric.
 """
 
 from __future__ import annotations
@@ -17,9 +25,10 @@ from functools import cached_property
 
 import numpy as np
 
-from .elements import basis_1d
+from .elements import basis_1d, lagrange_eval
+from .mesh import HEX_VERTS, Mesh, trilinear_weights
 
-__all__ = ["grid_lines", "LatticeSpace", "SurfaceSpace"]
+__all__ = ["grid_lines", "LatticeSpace", "CurvedLatticeSpace", "SurfaceSpace"]
 
 
 def grid_lines(n: int, L: float, ref_levels: int = 0) -> np.ndarray:
@@ -106,27 +115,208 @@ class LatticeSpace:
 
     def top_plane_dofs(self) -> np.ndarray:
         """Lattice dofs on the z-max plane (the tank free surface, attr 2)."""
+        return _top_plane_dofs(self.dof_dims)
+
+    def bounding_box(self) -> tuple[np.ndarray, np.ndarray]:
+        return (np.array([g[0] for g in self.lines]),
+                np.array([g[-1] for g in self.lines]))
+
+
+def _top_plane_dofs(dof_dims) -> np.ndarray:
+    Dx, Dy, Dz = dof_dims
+    return Dx * Dy * (Dz - 1) + np.arange(Dx * Dy, dtype=np.int64)
+
+
+# lattice-lex (x fastest) position of each MFEM hex corner
+_LEX_OF_VERT = np.array([0, 1, 3, 2, 4, 5, 7, 6])
+
+
+class CurvedLatticeSpace:
+    """Order-``p`` H1 dof lattice over a generator-declared element lattice.
+
+    ``mesh.elem_lattice [ne, 3]`` / ``mesh.lattice_dims (nex, ney, nez)``
+    give every element's logical position, its local axes aligned with the
+    lattice. Elements are reordered lattice-major and dofs numbered on the
+    global GLL lattice exactly as ``lpfem.space.H1Space._renumber_from_
+    lattice`` does, so the volume numbering equals lpfem's. lpfem checks the
+    declared lattice against its topological numbering and falls back to
+    it on a mismatch; the port has no unstructured path yet, so the corner
+    vertices are checked to sit on one lattice point each and a mismatch
+    raises. A mesh without a declared lattice raises NotImplementedError
+    (general meshes: ROADMAP A8).
+
+    Attributes: ``mesh`` (lattice-major), ``p``, ``elem_dims``,
+    ``dof_dims``, ``periodic``, ``n_dofs``, ``elem_dofs [ne, (p+1)^3]``
+    (x fastest).
+    """
+
+    def __init__(self, mesh: Mesh, p: int):
+        if mesh.elem_lattice is None or mesh.lattice_dims is None:
+            raise NotImplementedError(
+                "the mesh declares no element lattice: general (e.g. Gmsh) "
+                "meshes need the topological space port (ROADMAP A8)")
+        nex, ney, nez = (int(n) for n in mesh.lattice_dims)
+        el = np.asarray(mesh.elem_lattice, dtype=np.int64)
+        eperm = np.argsort(el[:, 0] + nex * (el[:, 1] + ney * el[:, 2]),
+                           kind="stable")
+        mesh = Mesh(mesh.verts, mesh.elems[eperm], mesh.corner_coords[eperm],
+                    mesh.bdr_quads, mesh.bdr_attrs, mesh.periodic,
+                    None if mesh.geom_nodes is None else mesh.geom_nodes[eperm],
+                    mesh.geom_order, periodic_axes=mesh.periodic_axes,
+                    elem_lattice=el[eperm], lattice_dims=(nex, ney, nez))
+        self.mesh = mesh
+        self.p = int(p)
+        self.elem_dims = (nex, ney, nez)
+        self.periodic = tuple(a in mesh.periodic_axes for a in range(3))
+        self.dof_dims = tuple(n * self.p + (0 if per else 1)
+                              for n, per in zip(self.elem_dims, self.periodic))
         Dx, Dy, Dz = self.dof_dims
-        return Dx * Dy * (Dz - 1) + np.arange(Dx * Dy, dtype=np.int64)
+        self.n_dofs = Dx * Dy * Dz
+        el = mesh.elem_lattice
+        if (len(el) != nex * ney * nez or el.min() < 0
+                or np.any(el.max(axis=0) >= np.array(self.elem_dims))
+                or len(np.unique(el[:, 0] + nex * (el[:, 1] + ney * el[:, 2])))
+                != len(el)):
+            raise ValueError("elem_lattice does not tile lattice_dims once")
+        self._check_corners()
+        p1 = self.p + 1
+        ax = np.arange(p1)
+        g = [el[:, a, None] * self.p + ax for a in range(3)]
+        for a in range(3):
+            if self.periodic[a]:
+                g[a] %= self.dof_dims[a]
+        gx, gy, gz = g
+        self.elem_dofs = (gx[:, None, None, :] + Dx * (
+            gy[:, None, :, None] + Dy * gz[:, :, None, None])).reshape(
+                len(el), p1 ** 3)
+
+    def _check_corners(self) -> None:
+        """Every vertex must sit on one lattice point in every element that
+        uses it (the lattice-aligned orientation the numbering assumes)."""
+        el = self.mesh.elem_lattice
+        corner = el[:, None, :] + HEX_VERTS[None, :, :]          # [ne, 8, 3]
+        for a in range(3):
+            if self.periodic[a]:
+                corner[..., a] %= self.elem_dims[a]
+        key = corner[..., 0] + (self.elem_dims[0] + 1) * (
+            corner[..., 1] + (self.elem_dims[1] + 1) * corner[..., 2])
+        vid = self.mesh.elems.ravel()
+        first = np.full(self.mesh.n_verts, -1, dtype=np.int64)
+        first[vid[::-1]] = key.ravel()[::-1]
+        used = np.unique(vid)
+        if (not np.array_equal(first[vid], key.ravel())
+                or len(np.unique(first[used])) != len(used)):
+            raise ValueError("element orientation or vertex sharing does not "
+                             "follow the declared lattice")
+
+    def with_order(self, p: int) -> "CurvedLatticeSpace":
+        """The same mesh and geometry at order ``p`` (a p-multigrid level)."""
+        return CurvedLatticeSpace(self.mesh, p)
+
+    def coarsen(self) -> None:
+        """No h-coarsening of a curved lattice: lpfem's 2x2x2 merge would
+        keep only the corners (trilinear geometry), and it never runs on the
+        cylinder tank (``nez = 1`` is odd, ``lpfem/multigrid.py:195``).
+        Returns None where lpfem's merge declines; raises where it would
+        coarsen."""
+        if any(n % 2 for n in self.elem_dims):
+            return None
+        raise NotImplementedError(
+            "h-coarsening a curved element lattice is not ported (lpfem's "
+            "merge drops the curved geometry)")
+
+    def geometry_lattice(self) -> tuple[np.ndarray, int]:
+        """(nodes [ne, (pg+1)^3, 3] lattice-lex, pg): the curved geometry
+        nodes, else the trilinear corner lattice
+        (``lpfem.operators._geometry_lattice``)."""
+        if self.mesh.geom_nodes is not None:
+            return self.mesh.geom_nodes, self.mesh.geom_order
+        return self.mesh.corner_coords[:, _LEX_OF_VERT, :], 1
+
+    @cached_property
+    def elem_node_coords(self) -> np.ndarray:
+        """[ne, (p+1)^3, 3] physical coordinates of every element lattice
+        node (``lpfem.space.H1Space.elem_node_coords``)."""
+        if self.mesh.geom_nodes is not None:
+            pg = self.mesh.geom_order
+            Bg, _ = lagrange_eval(basis_1d(pg).nodes, basis_1d(self.p).nodes)
+            B3 = np.einsum("cz,by,ax->cbazyx", Bg, Bg, Bg).reshape(
+                (self.p + 1) ** 3, (pg + 1) ** 3)
+            return np.einsum("lk,ekd->eld", B3, self.mesh.geom_nodes)
+        W = trilinear_weights(self.p)
+        return np.einsum("lk,ekd->eld", W, self.mesh.corner_coords)
+
+    @cached_property
+    def node_coords(self) -> np.ndarray:
+        """[n_dofs, 3] coordinates per dof (the first element that holds a
+        shared dof gives its position, as in lpfem)."""
+        X = np.zeros((self.n_dofs, 3))
+        flat = self.elem_dofs.ravel()[::-1]
+        X[flat] = self.elem_node_coords.reshape(-1, 3)[::-1]
+        return X
+
+    @cached_property
+    def node_mult(self) -> np.ndarray:
+        """[n_dofs] number of elements sharing each dof."""
+        return np.bincount(self.elem_dofs.ravel(),
+                           minlength=self.n_dofs).astype(np.float64)
+
+    def top_plane_dofs(self) -> np.ndarray:
+        """Lattice dofs on the z-max plane (the free surface, attr 2)."""
+        return _top_plane_dofs(self.dof_dims)
+
+    def bounding_box(self) -> tuple[np.ndarray, np.ndarray]:
+        return self.mesh.bounding_box()
 
 
 class SurfaceSpace:
-    """The free surface of a :class:`LatticeSpace`: its top z-plane, with
-    surface dof ``ix + Dx*iy`` at volume dof ``surf_to_vol[s]``."""
+    """The free surface of a lattice space: its top z-plane, with surface
+    dof ``ix + Dx*iy`` at volume dof ``surf_to_vol[s]``. ``elem_dofs
+    [nex*ney, (p+1)^2]`` are the top faces' dofs (x fastest), the surface
+    elements of :meth:`max_error_quad`."""
 
-    def __init__(self, vol: LatticeSpace):
+    def __init__(self, vol):
         self.vol = vol
         self.p = vol.p
         Dx, Dy, _ = vol.dof_dims
         self.n_dofs = Dx * Dy
         self.surf_to_vol = vol.top_plane_dofs()
-        Y, X = np.meshgrid(vol.axis_nodes(1), vol.axis_nodes(0),
-                           indexing="ij")
-        self.node_coords = np.stack(
-            [X.ravel(), Y.ravel(), np.full(self.n_dofs, vol.lines[2][-1])],
-            axis=1)
+        self.node_coords = vol.node_coords[self.surf_to_vol]
+        nex, ney, _ = vol.elem_dims
+        p, ar = self.p, np.arange(self.p + 1)
+        ix = (np.arange(nex)[:, None] * p + ar) % Dx            # [nex, p1]
+        iy = (np.arange(ney)[:, None] * p + ar) % Dy            # [ney, p1]
+        self.elem_dofs = (ix[None, :, None, :] + Dx * iy[:, None, :, None]
+                          ).reshape(ney * nex, (p + 1) ** 2)
 
     def project(self, fn) -> np.ndarray:
         """Nodal interpolation of ``fn(x, y, z)``."""
         X = self.node_coords
         return np.asarray(fn(X[:, 0], X[:, 1], X[:, 2]), dtype=np.float64)
+
+    def max_error_quad(self, vals, fn, q: int | None = None) -> float:
+        """Max-norm error over the element integration points of an
+        order-(2p+3) Gauss rule, MFEM ``GridFunction::ComputeMaxError``
+        semantics (``lpfem.space.SurfaceSpace.max_error_quad``,
+        ``lpfem/space.py:670-699``; the metric of
+        ``Convergence_and_Scaling/convergence-parallel.cpp:269-271``). Host
+        NumPy; elements of a periodic x axis that wrap the seam are unwrapped
+        by the period."""
+        p1 = self.p + 1
+        q = q if q is not None else self.p + 2
+        B = basis_1d(self.p, q).B                 # [q, p1]
+        u = np.asarray(vals)[self.elem_dofs].reshape(-1, p1, p1)
+        uq = np.einsum("by,ax,eyx->eba", B, B, u, optimize=True)
+        X = np.asarray(self.node_coords)[self.elem_dofs].reshape(
+            -1, p1, p1, 3).copy()
+        bbmin, bbmax = self.vol.bounding_box()
+        for d in range(3):
+            if not self.vol.periodic[d]:
+                continue
+            L = float(bbmax[d] - bbmin[d])
+            Xd = X[..., d]
+            emax = Xd.max(axis=(1, 2), keepdims=True)
+            Xd[Xd < emax - 0.5 * L] += L
+        Xq = np.einsum("by,ax,eyxd->ebad", B, B, X, optimize=True)
+        ex = fn(Xq[..., 0], Xq[..., 1], Xq[..., 2])
+        return float(np.max(np.abs(uq - ex)))

@@ -7,27 +7,34 @@ Counterpart of ``lpfem.surface.FreeSurfaceOperator`` (the reference's
     d phi_fs / dt = -g eta
 
 with phi solving Laplace's equation, phi = phi_fs on the free surface (the top
-z-plane) and zero-Neumann walls. The volume potential rides along as the CG
-warm start (MFEM's persistent ``GridFunction &phi``).
+z-plane) and zero-Neumann walls, plus the optional relaxation-zone penalty
+forcing ``d g/dt += alpha(t) C(x)/tau (g_e - g)``
+(``Solvers/PF_linear_serial.cpp:186-257``, ``lpfem/surface.py:82-143,
+350-357``). The volume potential rides along as the CG warm start (MFEM's
+persistent ``GridFunction &phi``).
 
 Two solve paths: ``op_hi`` given (``dtype="mixed"``) runs ``pcg_ir`` — float64
 outer residual on ``op_hi``, float32 inner CG on ``op``; otherwise ``pcg``
-on ``op``. The reference's double-single outer loop (TPU only) and the
-relaxation-zone forcing are not ported yet.
+on ``op``. ``op`` is either lattice operator. The reference's double-single
+outer loop (TPU only) is not ported.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from .operators import NodalZDerivative, SeparableLattice
+from .analytic import AiryWave
+from .operators import ElementLaplace, NodalZDerivative, SeparableLattice
 from .solvers import pcg, pcg_ir
 from .space import SurfaceSpace
 
-__all__ = ["FreeSurfaceOperator", "SolveInfo", "SolveStats", "SolveCarry"]
+__all__ = ["cgen_weight", "cabs_weight", "RelaxationZones",
+           "FreeSurfaceOperator", "SolveInfo", "SolveStats", "SolveCarry"]
 
 
 class SolveInfo(NamedTuple):
@@ -63,20 +70,89 @@ class SolveCarry(NamedTuple):
     stats: SolveStats
 
 
+def cgen_weight(x: np.ndarray, xg0: float, xg1: float) -> np.ndarray:
+    """Generation-zone forcing weight: 1 at the inlet (x <= xg0), cubic
+    smoothstep down to 0 at xg1 (``Solvers/PF_linear_serial.cpp:397-408``)."""
+    xi = np.clip((x - xg0) / (xg1 - xg0), 0.0, 1.0)
+    s = 1.0 - xi
+    return -2.0 * s ** 3 + 3.0 * s ** 2
+
+
+def cabs_weight(x: np.ndarray, x0: float, x1: float,
+                p: float = 5.0) -> np.ndarray:
+    """Absorption-zone weight: 0 at x0 rising as xi^p to 1 at the outlet x1
+    (``Solvers/PF_linear_serial.cpp:417-430``)."""
+    xi = np.clip((x - x0) / (x1 - x0), 0.0, 1.0)
+    return xi ** p
+
+
+@dataclass
+class RelaxationZones:
+    """Penalty-forcing data on the surface nodes (``lpfem.surface.
+    RelaxationZones``). ``cgen``/``cabs`` are nodal weights (lateral zones,
+    like the cylinder case's ``Cabsy``, are summed into one of them); the
+    target wave enters through its surface-node phase tables, so a stage
+    needs only the scalar trig of ``omega * t``."""
+    cgen: torch.Tensor       # [Ns]
+    cabs: torch.Tensor       # [Ns]
+    cos_kx: torch.Tensor     # [Ns] cos(k (kx x + ky y)) at surface nodes
+    sin_kx: torch.Tensor     # [Ns]
+    H: float
+    omega: float
+    phi_amp: float           # -H/2 c cosh(kh)/sinh(kh)
+    tau: float               # penalty timescale (= dt in the reference)
+    T: float                 # wave period, for the generation ramp
+    n_ramp: float = 3.0      # ramp periods
+
+    @classmethod
+    def build(cls, surf: SurfaceSpace, wave: AiryWave, tau: float,
+              cgen: np.ndarray | None = None, cabs: np.ndarray | None = None,
+              n_ramp: float = 3.0, dtype: torch.dtype = torch.float64,
+              device="cpu") -> "RelaxationZones":
+        X = surf.node_coords
+        ns = surf.n_dofs
+        karg = wave.k * (wave.kx * X[:, 0] + wave.ky * X[:, 1])
+        zero = np.zeros(ns)
+
+        def vec(a):
+            return torch.tensor(np.asarray(a, dtype=np.float64)).to(
+                device=device, dtype=dtype)
+
+        return cls(
+            cgen=vec(zero if cgen is None else cgen),
+            cabs=vec(zero if cabs is None else cabs),
+            cos_kx=vec(np.cos(karg)), sin_kx=vec(np.sin(karg)),
+            H=float(wave.H), omega=float(wave.omega),
+            phi_amp=float(-0.5 * wave.H * wave.c * np.cosh(wave.kh)
+                          / np.sinh(wave.kh)),
+            tau=float(tau), T=float(wave.T), n_ramp=float(n_ramp))
+
+    def targets(self, t: float):
+        """(eta_e, phi_fs_e) at stage time t: the Airy wave, via angle sums."""
+        c, s = math.cos(self.omega * t), math.sin(self.omega * t)
+        eta_e = 0.5 * self.H * (c * self.cos_kx + s * self.sin_kx)
+        phi_e = self.phi_amp * (s * self.cos_kx - c * self.sin_kx)
+        return eta_e, phi_e
+
+
 class FreeSurfaceOperator:
     """``(t, y, aux) -> (dy/dt, aux)`` with ``y = [eta; phi_fs]`` on the
     surface dofs (lattice order of the top plane) and ``aux`` a
     :class:`SolveCarry`."""
 
-    def __init__(self, op: SeparableLattice, surf: SurfaceSpace,
+    def __init__(self, op: SeparableLattice | ElementLaplace,
+                 surf: SurfaceSpace,
                  g: float = 9.81, cg_rtol_sq: float = 1e-24,
                  cg_atol_sq: float = 0.0, cg_max_iter: int = 1000,
-                 precond_fn=None, op_hi: SeparableLattice | None = None,
-                 ir_max_outer: int = 4, ir_inner_rtol_sq: float = 1e-8):
+                 precond_fn=None,
+                 op_hi: SeparableLattice | ElementLaplace | None = None,
+                 ir_max_outer: int = 4, ir_inner_rtol_sq: float = 1e-8,
+                 relax: RelaxationZones | None = None):
         self.op = op
         self.op_hi = op_hi
         self.surf = surf
         self.g = g
+        self.relax = relax
         self.cg_rtol_sq = cg_rtol_sq
         self.cg_atol_sq = cg_atol_sq
         self.cg_max_iter = cg_max_iter
@@ -84,7 +160,7 @@ class FreeSurfaceOperator:
         self.ir_inner_rtol_sq = ir_inner_rtol_sq
         self.n_surf = surf.n_dofs
         zop = op_hi if op_hi is not None else op
-        self.zderiv = NodalZDerivative(zop.space, zop.dtype, zop.Kx.device)
+        self.zderiv = NodalZDerivative(zop.space, zop.dtype, zop.device)
         if precond_fn is None:
             # Jacobi with identity on the essential plane
             diag = op.diag()
@@ -132,5 +208,14 @@ class FreeSurfaceOperator:
         phi, info = self.solve_laplace(phi_fs, aux.phi)
         deta = self.zderiv.top_trace(phi)
         dphi_fs = -self.g * eta
+        if self.relax is not None:
+            rz = self.relax
+            eta_e, phi_e = rz.targets(t)
+            alpha_gen = min(max(t / (rz.n_ramp * rz.T), 0.0), 1.0)
+            inv_tau = 1.0 / rz.tau
+            gen_w = alpha_gen * rz.cgen * inv_tau
+            deta = deta + gen_w * (eta_e - eta) - rz.cabs * inv_tau * eta
+            dphi_fs = (dphi_fs + gen_w * (phi_e - phi_fs)
+                       - rz.cabs * inv_tau * phi_fs)
         return torch.cat([deta, dphi_fs]), SolveCarry(phi,
                                                       aux.stats.update(info))

@@ -40,13 +40,18 @@ def rk4_step(f: Callable, t: float, dt: float, y: torch.Tensor, aux):
 
 
 def rk4_run(f: Callable, y0: torch.Tensor, aux0, t0: float, dt: float,
-            n_steps: int, guard: bool = True):
+            n_steps: int, guard: bool = True,
+            record: Callable | None = None):
     """``n_steps`` RK4 steps. Returns ``((t, y, aux), ok)``.
 
     With ``guard=True`` each step's state (``y`` and every tensor in ``aux``)
     is checked for finiteness — one host read per step. Once a step produces
     a non-finite value the run stops at the last finite ``(t, y, aux)`` and
     ``ok`` is False, as the reference's in-scan freeze does.
+
+    ``record(t, y, aux)`` is called after every completed step, the hook
+    of lpfem's scan (which stacks what it returns; here the callback keeps
+    what it needs).
     """
     t, y, aux, ok = float(t0), y0, aux0, True
     for _ in range(n_steps):
@@ -59,4 +64,6 @@ def rk4_run(f: Callable, y0: torch.Tensor, aux0, t0: float, dt: float,
                 ok = False
                 break
         y, aux, t = y_new, aux_new, t + dt
+        if record is not None:
+            record(t, y, aux)
     return (t, y, aux), ok

@@ -1,6 +1,7 @@
-"""lpfem_torch on a CUDA GPU: the hand-written kernel against its plain
-PyTorch version, and the whole time loop on the GPU against the same loop on
-the CPU (where every apply takes the plain version).
+"""lpfem_torch on a CUDA GPU: the hand-written kernels against their plain
+PyTorch versions, and the time loops (the ss.cpp tank, the diffraction tank)
+on the GPU against the same loops on the CPU (where every apply takes the
+plain version).
 
 Every test here needs a GPU and skips without one. This file imports neither
 ``jax`` nor ``lpfem``, so it runs on a machine without them:
@@ -21,9 +22,12 @@ import pytest
 import torch
 
 import lpfem_torch
+from lpfem_torch.cylmesh import make_half_cylinder_tank
+from lpfem_torch.experiments.diffraction import build_problem
+from lpfem_torch.kernels import pa_apply as kpa
 from lpfem_torch.kernels import sep_apply as ksep
-from lpfem_torch.operators import SeparableLattice
-from lpfem_torch.space import LatticeSpace, grid_lines
+from lpfem_torch.operators import ElementLaplace, SeparableLattice
+from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace, grid_lines
 
 
 @pytest.fixture
@@ -88,3 +92,64 @@ def test_gpu_run_matches_cpu_run(cuda, dtype):
     assert not sg.unconverged and sg.n_solves == sc.n_solves == 12
     if dtype == "float64":
         assert sg.total_iters == sc.total_iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_element_kernel_matches_plain_version(cuda, p, dtype, tol):
+    """B3b on the small cylinder tank's real metric, and on random metric
+    with an element count (37) that is no multiple of any block size."""
+    mesh = make_half_cylinder_tank(n_theta=12, n_r=6, nz=1, geom_order=p)
+    op = ElementLaplace(CurvedLatticeSpace(mesh, p), dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    L, Q6 = op.G6q.shape[1] // 6, op.G6q.shape[1]
+    cases = [(torch.randn(op.G6q.shape[0], L, generator=gen, device=cuda,
+                          dtype=dtype), op.G6q),
+             (torch.randn(37, L, generator=gen, device=cuda, dtype=dtype),
+              torch.rand(37, Q6, generator=gen, device=cuda, dtype=dtype))]
+    for u, G6q in cases:
+        before = kpa.LAUNCHES
+        ye = kpa.pa_apply_element(u, G6q, op.B, op.D)
+        assert kpa.LAUNCHES == before + 1
+        ye_ref = kpa.pa_apply_element_reference(u, G6q, op.B, op.D)
+        torch.cuda.synchronize()
+        err = float((ye - ye_ref).abs().max() / ye_ref.abs().max())
+        assert err < tol, err
+
+
+@pytest.mark.cuda
+def test_element_kernel_wrapper_raises_instead_of_falling_back(cuda):
+    mesh = make_half_cylinder_tank(n_theta=12, n_r=6, nz=1, geom_order=2)
+    op = ElementLaplace(CurvedLatticeSpace(mesh, 2), torch.float32, cuda)
+    u = torch.zeros(op.G6q.shape[0], 27, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="dtype and device"):
+        kpa.pa_apply_element(u, op.G6q, op.B, op.D)
+    with pytest.raises(ValueError, match="do not fit"):
+        kpa.pa_apply_element(u[:, :8].float().contiguous(), op.G6q, op.B,
+                             op.D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "mixed"])
+def test_gpu_diffraction_step_matches_cpu(cuda, dtype):
+    """One RK4 step of the study (three relaxation zones) on the small
+    cylinder tank: GPU (B3b) against CPU (plain version), 1e-12. Both
+    solve to r.z <= rz0 * 1e-24: at the mixed study's 1e-10 two runs whose
+    float32 inner solves exit one iteration apart differ by ~1e-8, which
+    says nothing of the kernel; the outer float64 refinement to 1e-24 takes
+    both to the same solution."""
+    kw = dict(order=2, n_theta=12, n_r=6, dr_max=0.0, nz=1, dtype=dtype,
+              rtol_sq=1e-24)
+    cpu = build_problem("cpu", **kw)
+    gpu = build_problem(cuda, **kw, lmax=cpu.precond.lmax)
+    before = kpa.LAUNCHES
+    _, y_g, phi_g = gpu.run(n_steps=1)
+    assert kpa.LAUNCHES > before
+    _, y_c, phi_c = cpu.run(n_steps=1)
+    gpu.check_state(y_g, phi_g)
+    assert float((y_g.cpu() - y_c).abs().max()) < 1e-12
+    assert float((phi_g.cpu() - phi_c).abs().max()) < 1e-12
+    assert not gpu.last_solver_stats.unconverged
+    assert gpu.last_solver_stats.n_solves == 4
