@@ -11,12 +11,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. Kernels vs plain versions on the card, relative to max|y|: double
    <= 1e-13, float <= 1e-5.
    - ``sep_apply`` (B1; float and double, p = 1, 2, 4, periodic and
-     non-periodic x, ess_top on and off, an odd Dx, and the four p-multigrid
-     lattices of the ss.cpp path) against ``sep_apply_reference``; time
-     per apply at the main-path lattices (device time from torch.profiler;
-     per call, the median of 5 chains of 30 applies timed with CUDA
-     events); the cuSPARSE SpMV of the assembled matrix at the
-     p=2 and p=1 lattices (p=4 has ~1.6e9 nonzeros, too many to assemble).
+     non-periodic x, ess_top on and off, an odd Dx, the four p-multigrid
+     lattices of the ss.cpp path and the four of path C, the tank one
+     refinement coarser) against ``sep_apply_reference``; time per apply at
+     the ss.cpp lattices (device time from torch.profiler; per call, the
+     median of 5 chains of 30 applies timed with CUDA events); the cuSPARSE
+     SpMV of the assembled matrix at p = 4 (assembled on the card from the
+     element matrices of the same tank), p = 2 and p = 1.
    - ``pa_apply_element`` (B3b; float and double, p = 1, 2, 4 on 37
      elements with random metric, and the three p-multigrid levels of the
      diffraction tank with random and with the real metric) against
@@ -25,6 +26,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      rotated over more than the 50 MB L2), of the full apply
      (gather + kernel + scatter), of the plain version, and of the cuSPARSE
      SpMV of the assembled operator.
+   - ``pa_apply_affine`` (B3a) and ``lattice_affine_apply`` (B2) on sheared
+     tanks (float and double; p = 1, 2, 4; periodic x with an even and an
+     odd element count and non-periodic x; odd ney, nez; ess_top on and
+     off; random symmetric positive definite ``C6`` and the real one) against
+     their plain versions; B2 also against ``ElementLaplace`` with the full
+     metric on the same mesh, and twice on one input for bitwise equality.
+     Then the three p-multigrid lattices of path A (32,768 leaning hexes):
+     times as for B3b, B2 beside the three-step route it fuses (gather +
+     B3a + fold) and beside B1 on the unsheared lattice of the same size,
+     and the cuSPARSE SpMV of the assembled operator at every level.
 3. The ss.cpp path: ``Problem(cfg, device="cuda")`` on the reference's
    strong-scaling protocol (``scaling_base``, 2 refinements, order 4, mixed
    precision, r.z <= rz0*1e-16, maxit 300, p-multigrid, Chebyshev degree 4;
@@ -40,16 +51,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 4. The wave-cylinder diffraction path at full width: the study's
    ``Problem`` (``lpfem_torch.experiments.diffraction.build_problem``: the
    polar half-cylinder tank, 4,224 curved hexes, 340,725 dofs at order 4,
-   three relaxation zones), one wave period at the study's dt (35 RK4 steps
-   = 140 Laplace solves) in float64, then the same 35 steps in mixed
-   precision, each with the launch counts set to 0 just before and read
+   three relaxation zones), 10 RK4 steps = 40 Laplace solves at the study's
+   dt = T/35 in float64, then the same 10 steps in mixed precision (depth
+   cut from one period, 35 steps, to make room for phase 5; the width is the
+   study's), each with the launch counts set to 0 just before and read
    just after. Requires every solve converged, a finite state, B3b launches
    in both runs, 0 < max|eta| < H, and the mixed run's final eta within
    1e-2 max|eta| of the float64 run's.
+5. The general-mesh path, launch counts set to 0 just before each run and
+   read just after; every solve must converge and the state stay finite:
+   - A: the ss.cpp tank meshed with leaning elements (``x += a z``, element
+     lattice declared; 32,768 hexes, 2,179,584 dofs, settings of phase 3,
+     the wave given by its wavelength): ``Problem(cfg, "cuda", mesh=...)``
+     must pick the fused affine lattice operator (B2) on every level; one
+     period in 40 RK4 steps; requires B2 launches, nodal eta error < 0.1 H
+     and within a factor 10 of phase 3's on the unsheared tank.
+   - B: the tank leaning the other way (``x += a y``) written as an MFEM
+     mesh file at 512 hexes and run as ``Problem(preset(...,
+     mesh_kind="mfem", mesh_file=..., ref_levels=...), "cuda")``: the
+     topological space finds no lattice but the z-extrusion, so the operator
+     is the affine element kernel (B3a) inside gather / fold; one period in
+     40 steps; requires B3a launches and nodal eta error < 0.1 H. Prints the
+     host set-up seconds.
+   - C: the unsheared tank written and loaded the same way must come out on
+     the Kronecker operator (B1) and, after 4 RK4 steps, agree with the
+     generated tank's run to 1e-12.
 
-Phases 3 and 4 (float64) each profile one more RK4 step with torch.profiler,
-outside the timed window: device kernel time by category and the device's
-busy share. Each phase's own time is printed.
+Phases 3, 4 (float64) and 5A each profile one more RK4 step with
+torch.profiler, outside the timed window: device kernel time by category and
+the device's busy share. Each phase's own time is printed.
 
 Prints one JSON line describing the kernels, then as the last line
 ``{"ok": true, "device": {...}}``. Details also go to
@@ -71,15 +101,21 @@ CFG = dict(ref_levels=2, order=4, dtype="mixed", cg_rtol_sq=1e-16,
 N_STEPS = 10
 ACCURACY_STEPS = 40            # dt = T/40: inside RK4's stability limit
 EXPECTED_COLD_ITERS = 8        # data/bench-scales.txt (the JAX reference)
-CYL_STEPS = 35                 # one period at the study's dt = T/35
+CYL_STEPS = 10                 # of the 35 per period at the study's dt = T/35
 CYL_DOFS = 340_725
+LEAN = dict(wave_by="wavelength", wave_lambda=0.5)   # Lx / wave_m
+PATH_B_REF_LEVELS = 2          # 512 -> 32,768 hexes, 2,179,584 dofs
+PATH_C_STEPS = 4
+KERNEL_SOURCES = ("sep_apply", "pa_apply", "lattice_apply")
 CHAIN = 30
 TOL = {"float32": 1e-5, "float64": 1e-13}
 
-# Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth, and the
-# non-tensor-core FMA rate of each dtype at the 700 W power limit.
+# Peak rates of one H100 SXM (NVIDIA data sheet) at the 700 W power limit:
+# HBM3 bandwidth, and the card's highest rate for each dtype (float32 on the
+# CUDA cores; float64 on the tensor cores, twice the CUDA cores' 34e12: the
+# element contractions are small matrix products).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 
 
 def _bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -111,8 +147,9 @@ def _time_chain(fn, args_list, reps=5) -> float:
 
 def _device_ms(fn, args_list, kernel_names) -> float | None:
     """Device time per call (ms) of the CUDA kernels whose names contain one
-    of ``kernel_names``, from torch.profiler over CHAIN calls; None when the
-    profiler records no device time."""
+    of ``kernel_names`` (None: of every device activity, memsets and copies
+    included), from torch.profiler over CHAIN calls; None when the profiler
+    records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn(*args_list[0])
@@ -123,7 +160,7 @@ def _device_ms(fn, args_list, kernel_names) -> float | None:
         torch.cuda.synchronize()
     us = sum(getattr(e, "device_time_total", 0.0)
              for e in prof.key_averages()
-             if any(k in e.key for k in kernel_names))
+             if kernel_names is None or any(k in e.key for k in kernel_names))
     return us / 1e3 / CHAIN if us > 0 else None
 
 
@@ -135,27 +172,46 @@ def _rel_err(y, y_ref) -> tuple[float, float]:
 
 
 def _csr_cuda(A, dtype):
-    """A scipy CSR matrix as a torch sparse CSR tensor on the card."""
+    """A scipy CSR matrix as a torch sparse CSR tensor on the card, with
+    32-bit indices (cuSPARSE's SpMV is faster with them than with torch's
+    default 64-bit ones)."""
     import numpy as np
     import torch
+    if A.nnz >= 2 ** 31:
+        raise ValueError(f"{A.nnz} nonzeros do not fit 32-bit indices")
     return torch.sparse_csr_tensor(
-        torch.tensor(A.indptr.astype(np.int64)),
-        torch.tensor(A.indices.astype(np.int64)),
+        torch.tensor(A.indptr.astype(np.int32)),
+        torch.tensor(A.indices.astype(np.int32)),
         torch.tensor(A.data), size=A.shape).to(device="cuda", dtype=dtype)
 
 
-def _csr_of_elements(op, dtype):
+def _csr_of_elements(op, dtype, chunk: int = 4096):
     """The assembled element operator as a torch sparse CSR tensor, built
-    on the card (66M element-matrix entries at p=4)."""
+    on the card: the element matrices of ``chunk`` elements at a time
+    (float64, rounded to ``dtype``) into one COO list, duplicates summed by
+    ``coalesce`` (5.1e8 entries for 32,768 elements at p=4); 32-bit indices
+    as :func:`_csr_cuda`'s."""
     import torch
-    Ae = op.element_matrices()                          # [ne, L, L] f64
     ed = torch.as_tensor(op.space.elem_dofs, device=op.device)
     ne, L = ed.shape
-    idx = torch.stack([ed[:, :, None].expand(ne, L, L).reshape(-1),
-                       ed[:, None, :].expand(ne, L, L).reshape(-1)])
-    A = torch.sparse_coo_tensor(idx, Ae.reshape(-1),
-                                (op.n_dofs, op.n_dofs)).coalesce()
-    return A.to_sparse_csr().to(dtype)
+    idx = torch.empty(2, ne * L * L, dtype=torch.int64, device=op.device)
+    val = torch.empty(ne * L * L, dtype=dtype, device=op.device)
+    for s in range(0, ne, chunk):
+        e = ed[s:s + chunk]
+        m = e.shape[0]
+        part = slice(s * L * L, (s + m) * L * L)
+        idx[0, part] = e[:, :, None].expand(m, L, L).reshape(-1)
+        idx[1, part] = e[:, None, :].expand(m, L, L).reshape(-1)
+        val[part] = op.element_matrices(slice(s, s + m)).reshape(-1).to(dtype)
+    A = torch.sparse_coo_tensor(idx, val, (op.n_dofs, op.n_dofs))
+    del idx, val
+    A = A.coalesce().to_sparse_csr()
+    if A.values().numel() >= 2 ** 31:
+        raise ValueError("the nonzeros do not fit 32-bit indices")
+    A = torch.sparse_csr_tensor(A.crow_indices().int(), A.col_indices().int(),
+                                A.values(), size=A.shape)
+    torch.cuda.empty_cache()
+    return A
 
 
 def phase_device_and_build(report: dict) -> None:
@@ -169,12 +225,12 @@ def phase_device_and_build(report: dict) -> None:
           f"device {torch.cuda.get_device_name(0)}")
     from lpfem_torch.kernels import _build
     t0 = time.perf_counter()
-    logs = _build.build_libraries(["sep_apply", "pa_apply"])
-    for name in ("sep_apply", "pa_apply"):
+    logs = _build.build_libraries(KERNEL_SOURCES)
+    for name in KERNEL_SOURCES:
         _build.load_library(name)
     secs = time.perf_counter() - t0
     report["build_s"] = secs
-    print(f"[1] built and loaded sep_apply and pa_apply in {secs:.2f} s "
+    print(f"[1] built and loaded {', '.join(KERNEL_SOURCES)} in {secs:.2f} s "
           f"({_build.BUILD_DIR})")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -182,11 +238,13 @@ def phase_device_and_build(report: dict) -> None:
                 print(f"[1] ptxas {name}: {line.strip()}")
 
 
-def _main_lattices():
-    """The p-multigrid lattices of the ss.cpp path (fine to coarse)."""
+def _main_lattices(ref_levels: int = CFG["ref_levels"]):
+    """The p-multigrid lattices of the ss.cpp tank refined ``ref_levels``
+    times (fine to coarse): 2 is the ss.cpp path, 1 is path C."""
     import lpfem_torch
     from lpfem_torch.space import LatticeSpace
-    fine = LatticeSpace.from_config(lpfem_torch.preset("scaling_base", **CFG))
+    fine = LatticeSpace.from_config(lpfem_torch.preset(
+        "scaling_base", **{**CFG, "ref_levels": ref_levels}))
     spaces = [fine, fine.with_order(2), fine.with_order(1)]
     spaces.append(spaces[-1].coarsen())
     return spaces
@@ -195,8 +253,8 @@ def _main_lattices():
 def phase_sep_apply(report: dict) -> dict:
     import torch
     from lpfem_torch.kernels.sep_apply import sep_apply, sep_apply_reference
-    from lpfem_torch.operators import SeparableLattice
-    from lpfem_torch.space import LatticeSpace, grid_lines
+    from lpfem_torch.operators import AffineLatticeLaplace, SeparableLattice
+    from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace, grid_lines
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -231,15 +289,23 @@ def phase_sep_apply(report: dict) -> dict:
                       f"{sp.dof_dims[1]} Dz={sp.dof_dims[2]} p={sp.p} "
                       f"{'periodic' if sp.periodic[0] else 'finite'}")
 
+    def cases(li):
+        """Every level's float32 inner solve; on the fine level also the
+        float64 outer residual and the right-hand side lift."""
+        fine = [(torch.float32, False), (torch.float64, True),
+                (torch.float64, False)] if li == 0 else []
+        return [(torch.float32, True)] + fine
+
+    for li, sp in enumerate(_main_lattices(ref_levels=1)):
+        dims = "x".join(str(d) for d in sp.dof_dims[::-1])
+        for dtype, ess in cases(li):
+            check(sp, dtype, ess, f"path C level {li}: p={sp.p} {dims}")
+
     times = []
     fine_f32 = None
     for li, sp in enumerate(_main_lattices()):
         dims = "x".join(str(d) for d in sp.dof_dims[::-1])
-        cases = [(torch.float32, True)]
-        if li == 0:       # the float64 outer residual and the rhs lift
-            cases += [(torch.float32, False), (torch.float64, True),
-                      (torch.float64, False)]
-        for dtype, ess in cases:
+        for dtype, ess in cases(li):
             op, x, abs_err = check(sp, dtype, ess,
                                    f"ss.cpp level {li}: p={sp.p} {dims}")
             ms = _time_chain(lambda v: sep_apply(v, op.bands, op.periodic,
@@ -260,10 +326,17 @@ def phase_sep_apply(report: dict) -> dict:
                        ms=dev if dev is not None else ms, call_ms=ms,
                        device_ms=dev, plain_ms=plain, max_abs_err=abs_err,
                        bound_ms=bound, bound_by=by, library_ms=None)
-            if li in (1, 2):
+            if li in (1, 2) or (li == 0 and ess):
                 # cuSPARSE yardstick: SpMV of the assembled matrix at this
-                # lattice (the operator without the top-plane identity)
-                A = _csr_cuda(op.assemble_scipy(), dtype)
+                # lattice (the operator without the top-plane identity);
+                # at p=4 assembled on the card from the element form of the
+                # same tank, which has the lattice's numbering
+                if li == 0:
+                    A = _csr_of_elements(AffineLatticeLaplace(
+                        CurvedLatticeSpace(_plain_mesh(), sp.p), dtype,
+                        "cuda"), dtype)
+                else:
+                    A = _csr_cuda(op.assemble_scipy(), dtype)
                 xf = x.reshape(-1)
                 _, rel = _rel_err(A @ xf, sep_apply(
                     x, op.bands, op.periodic).reshape(-1))
@@ -272,6 +345,7 @@ def phase_sep_apply(report: dict) -> dict:
                 row["library_ms"] = _time_chain(lambda v: A @ v, [(xf,)])
                 row["library_nnz"] = int(A.values().numel())
                 del A
+                torch.cuda.empty_cache()
             times.append(row)
             lib = (f", cuSPARSE SpMV {row['library_ms']:.4f} ms "
                    f"({row['library_nnz']} nonzeros)"
@@ -293,10 +367,12 @@ def _study_mesh():
     return study_mesh()
 
 
-def _element_flops(ne: int, p1: int, q: int) -> int:
-    """Flops of the sum-factorised element apply (csrc/pa_apply.cu)."""
+def _element_flops(ne: int, p1: int, q: int, affine: bool = False) -> int:
+    """Flops of the sum-factorised element apply (csrc/element_body.cuh):
+    the six contractions, and per Gauss point the symmetric 3x3 product
+    (15) and, with the affine metric, the three weight products."""
     macs = 4 * p1 ** 3 * q + 6 * p1 ** 2 * q ** 2 + 6 * p1 * q ** 3
-    return ne * (2 * macs + 15 * q ** 3)
+    return ne * (2 * macs + (18 if affine else 15) * q ** 3)
 
 
 def phase_pa_apply(report: dict) -> dict:
@@ -398,7 +474,247 @@ def phase_pa_apply(report: dict) -> dict:
     return head
 
 
+def _tank_dims():
+    """(dims, sizes) of the ss.cpp tank's coarse mesh (``scaling_base``)."""
+    import lpfem_torch
+    cfg = lpfem_torch.preset("scaling_base")
+    return (cfg.nx, cfg.ny, cfg.nz), (cfg.Lx, cfg.Ly, cfg.Lz)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_mesh():
+    """The ss.cpp tank refined twice as a mesh with its element lattice
+    declared (32,768 boxes; built once): the element form of the operator
+    that the Kronecker kernel applies, for the assembled yardstick."""
+    from lpfem_torch.experiments.leaning_tank import declare_lattice
+    from lpfem_torch.mesh import make_wave_tank
+    dims, sizes = _tank_dims()
+    mesh = make_wave_tank(*dims, *sizes)
+    for _ in range(CFG["ref_levels"]):
+        mesh = mesh.uniform_refine()
+    return declare_lattice(mesh)
+
+
+@functools.lru_cache(maxsize=None)
+def _leaning_mesh():
+    """Path A's mesh: the ss.cpp tank refined twice, leaning along z, the
+    element lattice declared (32,768 hexes; built once)."""
+    from lpfem_torch.experiments.leaning_tank import leaning_tank
+    dims, sizes = _tank_dims()
+    return leaning_tank(*dims, *sizes, ref_levels=CFG["ref_levels"], lean="z")
+
+
+def _random_spd6(ne: int, gen, dtype):
+    """[ne, 6]: the six components of random symmetric positive definite
+    3x3 matrices (A A^T + I)."""
+    import torch
+    A = torch.randn(ne, 3, 3, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    M = A @ A.transpose(1, 2) + torch.eye(3, device="cuda",
+                                          dtype=torch.float64)
+    return torch.stack([M[:, 0, 0], M[:, 0, 1], M[:, 0, 2], M[:, 1, 1],
+                        M[:, 1, 2], M[:, 2, 2]], dim=1).to(dtype).contiguous()
+
+
+def phase_affine(report: dict) -> tuple[dict, dict]:
+    import torch
+    import lpfem_torch
+    from lpfem_torch.experiments.leaning_tank import (declare_lattice,
+                                                      leaning_tank, shear_x)
+    from lpfem_torch.kernels.lattice_apply import (
+        lattice_affine_apply, lattice_affine_apply_reference)
+    from lpfem_torch.kernels.pa_apply import (pa_apply_affine,
+                                              pa_apply_affine_reference)
+    from lpfem_torch.kernels.sep_apply import sep_apply
+    from lpfem_torch.mesh import make_wave_tank_finite
+    from lpfem_torch.operators import (AffineLatticeLaplace, ElementLaplace,
+                                       SeparableLattice)
+    from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def check(name, y, y_ref, label, dt):
+        abs_err, rel = _rel_err(y, y_ref)
+        print(f"[2] {name} {label:52s} {dt:8s} rel_err={rel:.2e}")
+        if not rel <= TOL[dt]:
+            raise AssertionError(f"{name} disagrees: {label} {dt}: "
+                                 f"{rel:.3e}")
+        return abs_err
+
+    def check_b3a(op, C6, label):
+        dt = str(op.dtype)[6:]
+        u = torch.randn(C6.shape[0], (op.p + 1) ** 3, generator=gen,
+                        device="cuda", dtype=op.dtype)
+        return u, check("pa_apply_affine", pa_apply_affine(
+            u, C6, op.w3, op.B, op.D), pa_apply_affine_reference(
+                u, C6, op.w3, op.B, op.D), label, dt)
+
+    def check_b2(op, C6, ess, label):
+        dt = str(op.dtype)[6:]
+        dims, per = op.space.elem_dims, op.periodic
+        x = torch.randn(op.n_dofs, generator=gen, device="cuda",
+                        dtype=op.dtype)
+        y = lattice_affine_apply(x, C6, op.w3, op.B, op.D, dims, per, ess)
+        if not torch.equal(y, lattice_affine_apply(x, C6, op.w3, op.B, op.D,
+                                                   dims, per, ess)):
+            raise AssertionError(f"lattice_affine_apply is not bitwise "
+                                 f"repeatable: {label} {dt}")
+        return x, y, check("lattice_affine_apply", y,
+                           lattice_affine_apply_reference(
+                               x, C6, op.w3, op.B, op.D, dims, per, ess),
+                           f"{label} ess_top={int(ess)}", dt)
+
+    lz = 1.0 / (2 * 3.141592653589793)
+    finite = declare_lattice(make_wave_tank_finite(5, 3, 3, 12.0, 1.0, lz))
+    small = [("periodic 6x2x3", leaning_tank(6, 2, 3, 1.0, 0.1, lz)),
+             ("periodic 5x3x3 (odd nex: 12 classes)",
+              leaning_tank(5, 3, 3, 1.0, 0.1, lz)),
+             ("finite 5x3x3", shear_x(finite, 2, 0.5 * (12.0 / 5) / (lz / 3)))]
+    for name, mesh in small:
+        for p in (1, 2, 4):
+            space = CurvedLatticeSpace(mesh, p)
+            for dtype in (torch.float32, torch.float64):
+                dt = str(dtype)[6:]
+                op = AffineLatticeLaplace(space, dtype, "cuda")
+                full = ElementLaplace(space, dtype, "cuda")   # full metric
+                ne = op.C6.shape[0]
+                label = f"{name} p={p}"
+                check_b3a(op, op.C6, label + " real C6")
+                check_b3a(op, _random_spd6(37, gen, dtype),
+                          label + " ne=37 random C6")
+                for ess in (False, True):
+                    check_b2(op, _random_spd6(ne, gen, dtype), ess,
+                             label + " random C6")
+                    x, y, _ = check_b2(op, op.C6, ess, label + " real C6")
+                    y_full = (full.constrained_apply_top(x) if ess
+                              else full.apply(x))
+                    check("B2 vs ElementLaplace (full metric)", y, y_full,
+                          f"{label} ess_top={int(ess)}", dt)
+
+    # the p-multigrid lattices of path A
+    fine = CurvedLatticeSpace(_leaning_mesh(), CFG["order"])
+    plain = LatticeSpace.from_config(lpfem_torch.preset("scaling_base", **CFG))
+    if fine.n_dofs != 2_179_584 or fine.dof_dims != plain.dof_dims:
+        raise AssertionError(f"path A lattice {fine.dof_dims}")
+    times = {"pa_apply_affine": [], "lattice_affine_apply": []}
+    heads = {}
+    for p in (4, 2, 1):
+        space = fine.with_order(p)
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype)[6:]
+            size = 4 if dtype == torch.float32 else 8
+            op = AffineLatticeLaplace(space, dtype, "cuda")
+            ne, n, L, q = op.C6.shape[0], op.n_dofs, (p + 1) ** 3, p + 1
+            dims, per = space.elem_dims, op.periodic
+            label = f"path A level p={p} ne={ne}"
+            flops = _element_flops(ne, p + 1, q, affine=True)
+            tables = 6 * ne + q ** 3 + 2 * q * (p + 1)
+
+            # B3a at this level's E-vector (what the three-step route runs)
+            check_b3a(op, _random_spd6(ne, gen, dtype), label + " random C6")
+            u, abs_err = check_b3a(op, op.C6, label + " real C6")
+            n_sets = max(1, -(-60_000_000 // (2 * u.numel() * size)))
+            sets = [(u.clone(),) for _ in range(n_sets)]
+            b3a = lambda a: pa_apply_affine(a, op.C6, op.w3, op.B, op.D)
+            ms = _time_chain(b3a, sets)
+            dev = _device_ms(b3a, sets, ("pa_affine_kernel",))
+            plain_ms = _time_chain(lambda a: pa_apply_affine_reference(
+                a, op.C6, op.w3, op.B, op.D), sets[:1])
+            bound, by = _bound(size * (2 * ne * L + tables), flops, dt)
+            row = dict(p=p, ne=ne, dtype=dt, ms=dev if dev is not None else ms,
+                       call_ms=ms, device_ms=dev, plain_ms=plain_ms,
+                       max_abs_err=abs_err, bound_ms=bound, bound_by=by,
+                       library_ms=None, flops=flops)
+            times["pa_apply_affine"].append(row)
+            print(f"[2] time pa_apply_affine p={p} ne={ne} {dt}: kernel "
+                  f"{row['ms']:.4f} ms on the device ({ms:.4f} ms per call, "
+                  f"host included), plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by})")
+            if p == 4 and dtype == torch.float32:
+                heads["pa_apply_affine"] = row
+            del sets, u
+
+            # B2: every level runs ess_top in the inner solve; the fine
+            # level also the float64 residual and the right-hand side lift
+            # the three-step route B2 fuses (gather, B3a, fold), and B1 on
+            # the unsheared lattice of the same size
+            three = ElementLaplace(space, dtype, "cuda", C6=op.C64)
+            sep = SeparableLattice(plain.with_order(p), dtype, "cuda")
+            for ess in ((True, False) if p == 4 else (True,)):
+                check_b2(op, _random_spd6(ne, gen, dtype), ess,
+                         label + " random C6")
+                x, y, abs_err = check_b2(op, op.C6, ess, label + " real C6")
+                if p == 4 and ess:
+                    full = ElementLaplace(space, dtype, "cuda")
+                    check("B2 vs ElementLaplace (full metric)", y,
+                          full.constrained_apply_top(x),
+                          f"{label} ess_top=1", dt)
+                    del full
+                n_sets = max(1, -(-60_000_000 // (x.numel() * size)))
+                sets = [(x.clone(),) for _ in range(n_sets)]
+                b2 = lambda v: lattice_affine_apply(v, op.C6, op.w3, op.B,
+                                                    op.D, dims, per, ess)
+                ms = _time_chain(b2, sets)
+                dev = _device_ms(b2, sets, None)
+                plain_ms = _time_chain(
+                    lambda v: lattice_affine_apply_reference(
+                        v, op.C6, op.w3, op.B, op.D, dims, per, ess),
+                    sets[:1])
+                route = three.constrained_apply_top if ess else three.apply
+                _, rel = _rel_err(route(x), y)
+                if not rel <= TOL[dt]:
+                    raise AssertionError(f"gather + B3a + fold disagrees "
+                                         f"with B2: {rel:.3e}")
+                three_ms = _time_chain(route, sets)
+                three_dev = _device_ms(route, sets, None)
+                b1 = lambda v: sep_apply(v.view(sep.dof_dims[::-1]),
+                                         sep.bands, sep.periodic, ess)
+                b1_ms = _time_chain(b1, sets)
+                b1_dev = _device_ms(b1, sets, ("pass_x", "pass_y", "pass_z"))
+                bound, by = _bound(size * (2 * n + tables), flops, dt)
+                row = dict(p=p, ne=ne, dofs=n, dtype=dt, ess_top=ess,
+                           ms=dev if dev is not None else ms, call_ms=ms,
+                           device_ms=dev, plain_ms=plain_ms,
+                           three_step_call_ms=three_ms,
+                           three_step_device_ms=three_dev, b1_call_ms=b1_ms,
+                           b1_device_ms=b1_dev, max_abs_err=abs_err,
+                           bound_ms=bound, bound_by=by, library_ms=None,
+                           flops=flops)
+                if ess:
+                    # cuSPARSE yardstick: SpMV of the assembled operator
+                    # (without the top-plane identity)
+                    A = _csr_of_elements(three, dtype)
+                    _, rel = _rel_err(A @ x, three.apply(x))
+                    if not rel <= TOL[dt]:
+                        raise AssertionError(f"CSR SpMV disagrees: {rel:.3e}")
+                    row["library_ms"] = _time_chain(lambda v: A @ v, sets)
+                    row["library_nnz"] = int(A.values().numel())
+                    del A
+                times["lattice_affine_apply"].append(row)
+                lib = (f", cuSPARSE SpMV {row['library_ms']:.4f} ms "
+                       f"({row['library_nnz']} nonzeros)"
+                       if row["library_ms"] is not None else "")
+                print(f"[2] time lattice_affine_apply p={p} {n} dofs {dt} "
+                      f"ess_top={int(ess)}: {row['ms']:.4f} ms on the device "
+                      f"({ms:.4f} ms per call, host included), plain "
+                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+                      f"gather + B3a + fold {three_dev or three_ms:.4f} ms on "
+                      f"the device ({three_ms:.4f} per call); B1 on the "
+                      f"unsheared lattice {b1_dev or b1_ms:.4f} ms "
+                      f"({b1_ms:.4f} per call){lib}")
+                if p == 4 and dtype == torch.float32 and ess:
+                    heads["lattice_affine_apply"] = row
+                del sets, x, y
+                torch.cuda.empty_cache()
+            del op, three, sep
+            torch.cuda.empty_cache()
+    report["affine_times"] = times
+    return heads["pa_apply_affine"], heads["lattice_affine_apply"]
+
+
 _CATEGORIES = (("B3b pa_apply_element", ("pa_element_kernel",)),
+               ("B3a pa_apply_affine", ("pa_affine_kernel",)),
+               ("B2 lattice_affine_apply", ("lattice_affine_kernel",)),
                ("B1 sep_apply", ("pass_x", "pass_y", "pass_z")),
                ("matmul", ("gemm", "gemv", "Gemm", "Gemv", "cutlass",
                            "dot_kernel", "splitKreduce")),
@@ -471,15 +787,19 @@ def _sync_round_trip_us(reps: int = 200) -> float:
 
 
 def _zero_counts():
-    from lpfem_torch.kernels import pa_apply, sep_apply
+    from lpfem_torch.kernels import lattice_apply, pa_apply, sep_apply
     sep_apply.LAUNCHES = 0
     pa_apply.LAUNCHES = 0
+    pa_apply.LAUNCHES_AFFINE = 0
+    lattice_apply.LAUNCHES = 0
 
 
 def _read_counts() -> dict:
-    from lpfem_torch.kernels import pa_apply, sep_apply
+    from lpfem_torch.kernels import lattice_apply, pa_apply, sep_apply
     return {"sep_apply": sep_apply.LAUNCHES,
-            "pa_apply_element": pa_apply.LAUNCHES}
+            "pa_apply_element": pa_apply.LAUNCHES,
+            "pa_apply_affine": pa_apply.LAUNCHES_AFFINE,
+            "lattice_affine_apply": lattice_apply.LAUNCHES}
 
 
 def phase_ss_path(report: dict) -> int:
@@ -487,6 +807,7 @@ def phase_ss_path(report: dict) -> int:
     import lpfem_torch
 
     cfg = lpfem_torch.preset("scaling_base", **CFG)
+    torch.cuda.reset_peak_memory_stats()     # phase 2 assembled matrices
     t0 = time.perf_counter()
     prob = lpfem_torch.Problem(cfg, device="cuda")
     torch.cuda.synchronize()
@@ -574,7 +895,7 @@ def phase_ss_path(report: dict) -> int:
     report["accuracy"] = dict(nsteps=ACCURACY_STEPS, eta_error_inf_nodal=err,
                               t=t, total_inner_iters=acc.last_solver_stats
                               .total_iters)
-    return launches
+    return launches, err
 
 
 def phase_diffraction(report: dict) -> int:
@@ -653,6 +974,185 @@ def phase_diffraction(report: dict) -> int:
                for v in runs.values())
 
 
+def _run_period(tag, prob, cfg, kernel, what, report_key, report,
+                profile=False):
+    """One wave period (``cfg.nsteps`` RK4 steps) of ``prob`` with the
+    launch counts set to 0 just before and read just after; requires every
+    solve converged, a finite state, launches of ``kernel`` and the nodal
+    eta error below 0.1 H. Returns (error, launches)."""
+    import torch
+    n, ns = prob.space.n_dofs, prob.surf.n_dofs
+    y0, phi0 = prob.initial_state()
+    _, cold = prob.fso.solve_laplace(y0[ns:], phi0)
+    print(f"{tag} cold solve: {cold.iters} inner CG iterations, "
+          f"converged={cold.converged}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    t, y, phi = prob.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    stats = prob.last_solver_stats
+    prob.check_state(y, phi)
+    if stats.unconverged or not cold.converged:
+        raise AssertionError(f"a solve did not converge: {stats}")
+    if stats.n_solves != 4 * cfg.nsteps:
+        raise AssertionError(f"expected {4 * cfg.nsteps} solves, ran "
+                             f"{stats.n_solves}")
+    if counts[kernel] <= 0:
+        raise AssertionError(f"{what} launched no {kernel} kernel")
+    err = prob.eta_error_inf(y, t, quad=False)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} {cfg.nsteps} RK4 steps = {stats.n_solves} solves over one "
+          f"period: wall {wall:.3f} s, {n * stats.n_solves / wall:.4e} "
+          f"dof*solves/s, {stats.total_iters} inner CG iterations (max "
+          f"{stats.max_iters} per solve), {stats.syncs} host syncs, launches "
+          f"{counts}, nodal eta error inf {err:.3e} (limit 0.1 H = "
+          f"{0.1 * cfg.H:.1e}), peak device memory {peak / 1e6:.0f} MB")
+    if not (abs(t - prob.t_final) < 1e-9 * prob.t_final
+            and err < 0.1 * cfg.H):
+        raise AssertionError(f"eta error {err} at t={t} fails 0.1 H")
+    report[report_key] = dict(
+        dofs=n, surface_dofs=ns, wall_s=wall, n_solves=stats.n_solves,
+        cold_solve_iters=cold.iters, total_inner_iters=stats.total_iters,
+        max_iters=stats.max_iters, syncs=stats.syncs, launches=counts,
+        eta_error_inf_nodal=err, t=t, peak_mem_bytes=peak,
+        lmax=prob.precond.lmax)
+    if profile:
+        prof = _profile_step(prob, (y, phi), t)
+        prof["busy_share_unprofiled"] = (prof["device_ms"]
+                                         / (1e3 * wall / cfg.nsteps))
+        _print_profile(tag, prof)
+        print(f"{tag} device time over the unprofiled step wall "
+              f"{prof['busy_share_unprofiled']:.3f}")
+        report[report_key]["profile"] = prof
+    return err, counts[kernel]
+
+
+def phase_general_mesh(report: dict, ss_err: float) -> dict:
+    import torch
+    import lpfem_torch
+    from lpfem_torch.experiments.leaning_tank import leaning_tank
+    from lpfem_torch.mesh import make_wave_tank, save_mfem
+    from lpfem_torch.operators import (AffineLatticeLaplace, ElementLaplace,
+                                       SeparableLattice)
+
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    dims, sizes = _tank_dims()
+    launches = {}
+
+    # ---- path A: leaning along z, lattice declared -> B2
+    cfg = lpfem_torch.preset("scaling_base", **CFG, **LEAN,
+                             nsteps=ACCURACY_STEPS)
+    t0 = time.perf_counter()
+    prob = lpfem_torch.Problem(cfg, device="cuda", mesh=_leaning_mesh())
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    levels = prob.precond.levels
+    coarse = ("dense" if prob.precond._coarse_inv is not None
+              else "Chebyshev-16")
+    print(f"[5A] setup {setup:.2f} s: {prob.space.mesh.n_elems} leaning "
+          f"hexes, {prob.space.n_dofs} dofs {prob.space.dof_dims}, operator "
+          f"{type(prob.op).__name__}, p-MG levels "
+          f"{[lv.op.space.dof_dims for lv in levels]} ({coarse} coarse "
+          f"solve), trace fast path {prob.fso.zderiv.jz is not None}, lmax "
+          f"{prob.precond.lmax}")
+    if prob.space.n_dofs != 2_179_584:
+        raise AssertionError(f"expected 2,179,584 dofs, got "
+                             f"{prob.space.n_dofs}")
+    for op in (prob.op, prob.op_hi, *(lv.op for lv in levels)):
+        if type(op) is not AffineLatticeLaplace:
+            raise AssertionError(f"path A runs {type(op).__name__}, not the "
+                                 "fused affine lattice operator")
+    err, launches["A"] = _run_period(
+        "[5A]", prob, cfg, "lattice_affine_apply", "path A", "path_a",
+        report, profile=True)
+    report["path_a"]["setup_s"] = setup
+    print(f"[5A] eta error {err:.3e} against {ss_err:.3e} on the unsheared "
+          f"tank (phase 3): ratio {err / ss_err:.2f} (limit 10)")
+    if not err < 10.0 * ss_err:
+        raise AssertionError(f"path A's eta error {err} is not within a "
+                             f"factor 10 of phase 3's {ss_err}")
+    del prob, levels
+    torch.cuda.empty_cache()
+
+    # ---- path B: leaning along y, through a mesh file -> B3a
+    path = out / "leaning-y.mesh"
+    save_mfem(leaning_tank(*dims, *sizes, lean="y", declare=False), str(path))
+    cfg = lpfem_torch.preset(
+        "scaling_base", **{**CFG, "ref_levels": PATH_B_REF_LEVELS}, **LEAN,
+        nsteps=ACCURACY_STEPS, mesh_kind="mfem", mesh_file=str(path))
+    t0 = time.perf_counter()
+    prob = lpfem_torch.Problem(cfg, device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    sp = prob.space
+    print(f"[5B] host set-up {setup:.2f} s (load, {PATH_B_REF_LEVELS} "
+          f"refinement(s), topological numbering, operators): "
+          f"{sp.mesh.n_elems} hexes, {sp.n_dofs} dofs, lattice "
+          f"{sp.struct is not None}, z-extruded {sp.extruded is not None}, "
+          f"operator {type(prob.op).__name__} (affine metric "
+          f"{prob.op.C64 is not None}), trace layout "
+          f"{prob.fso.zderiv.layout}, p-MG orders {prob.precond.orders}")
+    if sp.struct is not None or sp.extruded is None:
+        raise AssertionError("path B's mesh should have no lattice and be "
+                             "z-extruded")
+    for op in (prob.op, prob.op_hi, *(lv.op for lv in prob.precond.levels)):
+        if type(op) is not ElementLaplace or op.C64 is None:
+            raise AssertionError("path B should run the affine element "
+                                 "operator on every level")
+    _, launches["B"] = _run_period(
+        "[5B]", prob, cfg, "pa_apply_affine", "path B", "path_b", report)
+    report["path_b"]["setup_s"] = setup
+    del prob
+    torch.cuda.empty_cache()
+
+    # ---- path C: the unsheared tank through a mesh file -> B1
+    path = out / "plain.mesh"
+    save_mfem(make_wave_tank(*dims, *sizes), str(path))
+    kw = {**CFG, "ref_levels": 1, "nsteps": ACCURACY_STEPS}   # a stable dt
+    loaded = lpfem_torch.Problem(lpfem_torch.preset(
+        "scaling_base", **kw, mesh_kind="mfem", mesh_file=str(path)),
+        device="cuda")
+    if type(loaded.op) is not SeparableLattice:
+        raise AssertionError(f"path C runs {type(loaded.op).__name__}, not "
+                             "the Kronecker operator")
+    made = lpfem_torch.Problem(lpfem_torch.preset("scaling_base", **kw),
+                               device="cuda", lmax=loaded.precond.lmax)
+    _zero_counts()
+    _, y_l, phi_l = loaded.run(n_steps=PATH_C_STEPS)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    _, y_m, phi_m = made.run(n_steps=PATH_C_STEPS)
+    loaded.check_state(y_l, phi_l)
+    if loaded.last_solver_stats.unconverged:
+        raise AssertionError("path C: a solve did not converge")
+    launches["C"] = counts["sep_apply"]
+    if launches["C"] <= 0:
+        raise AssertionError("path C launched no sep_apply kernel")
+    # the loaded tank's surface order is the mesh's; the generated tank's is
+    # the top plane in lattice order
+    Dx, Dy, Dz = made.space.dof_dims
+    perm = torch.as_tensor(loaded.surf.surf_to_vol - Dx * Dy * (Dz - 1),
+                           device="cuda")
+    ns = made.surf.n_dofs
+    d_eta = float((y_l[:ns] - y_m[:ns][perm]).abs().max())
+    d_phi = float((phi_l - phi_m).abs().max())
+    print(f"[5C] the unsheared tank loaded from a file: "
+          f"{loaded.space.n_dofs} dofs, operator SeparableLattice, "
+          f"{PATH_C_STEPS} RK4 steps, launches {counts}; against the "
+          f"generated tank max|eta diff| {d_eta:.2e}, max|phi diff| "
+          f"{d_phi:.2e} (limit 1e-12)")
+    if not (d_eta <= 1e-12 and d_phi <= 1e-12):
+        raise AssertionError("path C disagrees with the generated tank")
+    report["path_c"] = dict(dofs=loaded.space.n_dofs, launches=counts,
+                            max_eta_diff=d_eta, max_phi_diff=d_phi)
+    return launches
+
+
 def main() -> int:
     import warnings
     # torch's notes that sparse CSR is beta / unchecked (the yardsticks)
@@ -665,38 +1165,52 @@ def main() -> int:
     report: dict = {"phase_s": {}}
     t_start = time.perf_counter()
 
-    def timed(name, fn):
+    def timed(name, fn, *args):
         t0 = time.perf_counter()
-        out = fn(report)
+        out = fn(report, *args)
         report["phase_s"][name] = time.perf_counter() - t0
         print(f"[{name[0]}] phase {name} took "
               f"{report['phase_s'][name]:.1f} s")
         return out
 
     timed("1 build", phase_device_and_build)
-    sep = timed("2 sep_apply", phase_sep_apply)
-    pa = timed("2 pa_apply", phase_pa_apply)
-    sep_launches = timed("3 ss.cpp path", phase_ss_path)
-    pa_launches = timed("4 diffraction", phase_diffraction)
-    report["total_s"] = time.perf_counter() - t_start
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
+    sep = timed("2 sep_apply", phase_sep_apply)
+    pa = timed("2 pa_apply", phase_pa_apply)
+    b3a, b2 = timed("2 affine kernels", phase_affine)
+    sep_launches, ss_err = timed("3 ss.cpp path", phase_ss_path)
+    pa_launches = timed("4 diffraction", phase_diffraction)
+    launches = timed("5 general mesh", phase_general_mesh, ss_err)
+    report["total_s"] = time.perf_counter() - t_start
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(f"total {report['total_s']:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = {"kernels": [
         dict(name="sep_apply", route="cuda",
              source="lpfem_torch/csrc/sep_apply.cu",
              replaces="lpfem/kernels/sep_apply.py:230",
-             launches=sep_launches, **{k: sep[k] for k in keys}),
+             launches=sep_launches, path_c_launches=launches["C"],
+             **{k: sep[k] for k in keys}),
         dict(name="pa_apply_element", route="cuda",
              source="lpfem_torch/csrc/pa_apply.cu",
              replaces="lpfem/kernels/pa_apply.py:124",
              launches=pa_launches, library_ms=None,
              full_apply_ms=pa["full_apply_ms"],
              library_full_apply_ms=pa["library_full_apply_ms"],
-             **{k: pa[k] for k in keys if k != "library_ms"})]}
-    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    print(f"total {report['total_s']:.1f} s")
+             **{k: pa[k] for k in keys if k != "library_ms"}),
+        dict(name="pa_apply_affine", route="cuda",
+             source="lpfem_torch/csrc/pa_apply.cu",
+             replaces="lpfem/kernels/pa_apply.py:73",
+             launches=launches["B"], **{k: b3a[k] for k in keys}),
+        dict(name="lattice_affine_apply", route="cuda",
+             source="lpfem_torch/csrc/lattice_apply.cu",
+             replaces="lpfem/kernels/lattice_apply.py:238",
+             launches=launches["A"],
+             three_step_device_ms=b2["three_step_device_ms"],
+             b1_device_ms=b2["b1_device_ms"],
+             **{k: b2[k] for k in keys})]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,21 +7,25 @@ reader can find each counterpart:
     configs    the reference's Config / presets (verbatim)
     elements   GLL Lagrange basis / quadrature tables (NumPy)
     analytic   Airy wave, dispersion, McCamy-Fuchs series
-    mesh       the hex mesh record a generator fills
+    mesh       hex mesh record, refinement, Cartesian tank generators, MFEM
+               mesh files
     cylmesh    the curved half-cylinder diffraction tank generator
     space      LatticeSpace (Cartesian tank), CurvedLatticeSpace (declared
-               element lattice), SurfaceSpace (the top plane)
-    geometry   metric / Jacobian tables of curved elements (NumPy, f64)
+               element lattice), H1Space (topological numbering of any
+               mesh), SurfaceSpace (the free surface)
+    geometry   metric / Jacobian tables of the elements (NumPy, f64)
     convert    lpfem state / smoother tables <-> this package's layout
     kernels    CUDA kernels + their plain-PyTorch versions
-    operators  banded Kronecker Laplace (SeparableLattice), element-form
-               Laplace (ElementLaplace), top-plane trace
+    operators  banded Kronecker Laplace (SeparableLattice), fused affine
+               lattice Laplace (AffineLatticeLaplace), element-form Laplace
+               (ElementLaplace), the rule that picks one, free-surface trace
     solvers    PCG and mixed-precision iterative refinement (host loops)
     multigrid  Chebyshev-Jacobi smoother and p/h-multigrid V-cycle
     surface    free-surface right-hand side, relaxation zones
     timestep   RK4 with the non-finite freeze guard and a record hook
     problem    Config (+ mesh) -> operators -> time loop
     experiments.diffraction  the wave-cylinder diffraction study
+    experiments.leaning_tank the periodic tank meshed with sheared elements
 
 Device and dtype policy: every constructor takes an explicit ``device``;
 ``dtype="mixed"`` keeps the state and the outer residual in float64 and runs

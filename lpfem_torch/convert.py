@@ -1,32 +1,59 @@
 """Carry state and smoother tables between ``lpfem`` and this package.
 
-The volume numbering is the same in both (``ix + Dx*(iy + Dy*iz)``) on
-either lattice — the Cartesian tank (``LatticeSpace``) and a curved
-generator-declared lattice (``CurvedLatticeSpace``, lpfem's
-``_renumber_from_lattice``) — but ``lpfem``'s surface state
-``[eta; phi_fs]`` is in the topological order of its ``SurfaceSpace(attr=2)``
+The volume numbering is the same in both on every space. On the two lattice
+spaces — the Cartesian tank (``LatticeSpace``) and a generator-declared
+lattice (``CurvedLatticeSpace``, lpfem's ``_renumber_from_lattice``) — it is
+``ix + Dx*(iy + Dy*iz)``, but ``lpfem``'s surface state ``[eta; phi_fs]`` is
+in the topological order of its ``SurfaceSpace(attr=2)``
 (``build_quad_dofs``), while here the surface is the top plane in lattice
 order: surface dof ``s`` of ``lpfem`` is lattice-plane dof
-``surf_to_vol[s] - Dx*Dy*(Dz-1)``. Everything is NumPy in and out; nothing
-here imports ``lpfem`` or ``jax`` — pass ``np.asarray`` of their arrays.
+``surf_to_vol[s] - Dx*Dy*(Dz-1)``. On an ``H1Space`` (mesh files, refined
+meshes) the port reproduces lpfem's volume and surface numbering, so states
+pass unchanged; :func:`surface_map` gives the map in every case and
+:func:`assert_same_numbering` checks the identity. Everything is NumPy in
+and out; nothing here imports ``lpfem`` or ``jax`` — pass ``np.asarray`` of
+their arrays.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["surface_permutation", "state_from_lpfem", "state_to_lpfem",
-           "smoother_lmax"]
+__all__ = ["surface_permutation", "surface_map", "assert_same_numbering",
+           "state_from_lpfem", "state_to_lpfem", "smoother_lmax"]
+
+
+def surface_map(surf_to_vol_lpfem, surf_to_vol_port) -> np.ndarray:
+    """[Ns] the port's surface dof of each ``lpfem`` surface dof, matched
+    through the volume dof both sit on (the volume numberings agree)."""
+    s2v_l = np.asarray(surf_to_vol_lpfem, dtype=np.int64)
+    s2v_p = np.asarray(surf_to_vol_port, dtype=np.int64)
+    order = np.argsort(s2v_p, kind="stable")
+    pos = np.searchsorted(s2v_p[order], s2v_l)
+    if (s2v_l.shape != s2v_p.shape or pos.max(initial=0) >= len(order)
+            or not np.array_equal(s2v_p[order][pos], s2v_l)
+            or len(np.unique(s2v_l)) != len(s2v_l)):
+        raise ValueError("the two surfaces do not cover the same volume dofs")
+    return order[pos]
 
 
 def surface_permutation(surf_to_vol, dof_dims) -> np.ndarray:
     """[Ns] top-plane lattice index of each ``lpfem`` surface dof."""
     Dx, Dy, Dz = dof_dims
-    perm = np.asarray(surf_to_vol, dtype=np.int64) - Dx * Dy * (Dz - 1)
-    if (perm.shape != (Dx * Dy,) or perm.min() < 0
-            or len(np.unique(perm)) != Dx * Dy):
-        raise ValueError("surf_to_vol is not a permutation of the top plane")
-    return perm
+    return surface_map(surf_to_vol,
+                       Dx * Dy * (Dz - 1) + np.arange(Dx * Dy, dtype=np.int64))
+
+
+def assert_same_numbering(space_l, surf_l, space_p, surf_p) -> None:
+    """Raise unless the port's space and surface (an ``H1Space`` and its
+    ``SurfaceSpace``) number volume and surface dofs exactly as lpfem's:
+    then states of either package are states of the other."""
+    if (space_l.n_dofs != space_p.n_dofs
+            or not np.array_equal(space_l.elem_dofs, space_p.elem_dofs)):
+        raise ValueError("volume numberings differ")
+    if not np.array_equal(np.asarray(surf_l.surf_to_vol),
+                          surf_p.surf_to_vol):
+        raise ValueError("surface numberings differ")
 
 
 def state_from_lpfem(y, phi, surf_to_vol, dof_dims):

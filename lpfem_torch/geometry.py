@@ -3,9 +3,10 @@
 Counterpart of ``lpfem/operators.py:45-175``: the quadrature-point Jacobians
 of the isoparametric geometry (curved nodes when the mesh has them, else the
 trilinear corner lattice), the symmetric metric ``G = w |J| J^-1 J^-T`` in
-its six unique components, the reference-gradient interpolation matrix, and
-the z-column of the inverse Jacobian at the element nodes that the
-free-surface trace reads. Inverted geometry raises.
+its six unique components (or, on affine elements, its six constants per
+element), the reference-gradient interpolation matrix, and the z-column of
+the inverse Jacobian at the element nodes that the free-surface trace reads.
+Inverted geometry raises.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import numpy as np
 
 from .elements import basis_1d, lagrange_eval
 
-__all__ = ["geometric_factors", "grad_interp_matrix", "top_trace_geometry"]
+__all__ = ["affine_c6", "geometric_factors", "grad_interp_matrix",
+           "surface_elements", "top_trace_geometry"]
 
 _GEOM_CHUNK = 1 << 16   # elements per host chunk (bounds the [*,Q,3,3] temps)
 
@@ -43,6 +45,30 @@ def _metric6_chunk(detJ, Jinv):
     M = np.einsum("eqik,eqjk->eqij", Jinv, Jinv) * detJ[..., None, None]
     return np.stack([M[..., 0, 0], M[..., 0, 1], M[..., 0, 2],
                      M[..., 1, 1], M[..., 1, 2], M[..., 2, 2]], axis=-1)
+
+
+def affine_c6(space, q: int, dtype) -> np.ndarray | None:
+    """C6 [ne, 6] float64 when every element is affine: the quad-point
+    metric is then ``G[e, q] = w3[q] C6[e]`` with ``w3`` the products of the
+    Gauss weights, 6 numbers per element instead of 6 q^3. None when the
+    metric varies inside some element by more than 1e-6 (``dtype`` float32)
+    or 1e-12 (float64) of its largest entry, the dtype-tied tolerance of
+    ``lpfem.operators.affine_c6`` (``lpfem/operators.py:94-121``)."""
+    gnodes, pg = space.geometry_lattice()
+    bg = basis_1d(pg, q)
+    pg1 = pg + 1
+    cc = gnodes.reshape(-1, pg1, pg1, pg1, 3)
+    ne = cc.shape[0]
+    C6 = np.empty((ne, 6))
+    gmax = rmax = 0.0
+    for s in range(0, ne, _GEOM_CHUNK):
+        _, detJ, Jinv = _jacobian_chunk(cc[s:s + _GEOM_CHUNK], bg.B, bg.D, q)
+        M6 = _metric6_chunk(detJ, Jinv)
+        C6[s:s + _GEOM_CHUNK] = M6[:, 0, :]
+        gmax = max(gmax, float(np.max(np.abs(M6))))
+        rmax = max(rmax, float(np.max(np.abs(M6 - M6[:, :1, :]))))
+    afftol = 1e-6 if np.dtype(dtype) == np.float32 else 1e-12
+    return None if rmax > afftol * gmax else C6
 
 
 def geometric_factors(space, q: int | None = None) -> np.ndarray:
@@ -79,43 +105,49 @@ def grad_interp_matrix(p: int, q: int) -> np.ndarray:
     return np.stack([g.reshape(Q, L) for g in (g_x, g_y, g_z)], axis=0)
 
 
-def top_trace_geometry(space, dtype_tol: float = 1e-12):
-    """(jz, Jz_face) for the free-surface trace of the nodal z-derivative
-    (``lpfem.operators.NodalZDerivative``, ``:911-1014``).
+def surface_elements(space, ess) -> np.ndarray:
+    """Sorted ids of the elements that hold at least one of the dofs
+    ``ess`` (the top element layer of a tank)."""
+    on = np.zeros(space.n_dofs, dtype=bool)
+    on[np.asarray(ess)] = True
+    return np.flatnonzero(on[space.elem_dofs].any(axis=1))
 
-    ``Jz_face [nex*ney, (p+1)^2, 3]``: the inverse-Jacobian z-column
-    ``(dxi/dz, deta/dz, dzeta/dz)`` at the top-face nodes of every top-layer
-    element (lattice order, x fastest), for the general trace.
 
-    ``jz``: ``dzeta/dz`` of the top layer when lpfem's extrusion check
-    passes — the z-column constant inside every element (to ``dtype_tol``
-    of its max, lpfem's ``Jz3`` test), in-plane parts <= 1e-13 of its scale
-    and one ``jz`` across the top layer (``_detect_top``) — so that the
+def top_trace_geometry(space, dtype_tol: float = 1e-12, elems=None):
+    """(jz, Jz) for the free-surface trace of the nodal z-derivative
+    (``lpfem.operators.NodalZDerivative``, ``:911-1014``), over the elements
+    ``elems`` (default: those that touch the free surface; lpfem tests all
+    elements, but only these reach the trace).
+
+    ``Jz``: the inverse-Jacobian z-column ``(dxi/dz, deta/dz, dzeta/dz)`` at
+    the element nodes, ``[m, (p+1)^3, 3]``, or ``[m, 1, 3]`` when it is
+    constant inside every element to ``dtype_tol`` of its max (lpfem's
+    compact ``Jz3``, affine elements).
+
+    ``jz``: ``dzeta/dz`` of the layer when lpfem's extrusion check passes —
+    the column constant inside every element, in-plane parts <= 1e-13 of its
+    scale and one ``jz`` across the layer (``_detect_top``) — so that the
     trace reduces to ``jz * sum_m Dn[p, m] phi[z = Dz-1-p+m]``; else None,
     where lpfem takes its full nodal-derivative path. (Round-off alone can
     fail the first test: on the 4,224-hex cylinder tank the column varies
     by 1.9e-12 of its scale.)"""
-    p = space.p
-    p1 = p + 1
-    b = basis_1d(p)
+    if elems is None:
+        elems = surface_elements(space, space.top_plane_dofs())
+    p1 = space.p + 1
+    b = basis_1d(space.p)
     gnodes, pg = space.geometry_lattice()
     B1n, D1n = lagrange_eval(basis_1d(pg).nodes, b.nodes)
     pg1 = pg + 1
-    cc = gnodes.reshape(-1, pg1, pg1, pg1, 3)
-    ne = cc.shape[0]
+    cc = gnodes[elems].reshape(-1, pg1, pg1, pg1, 3)
     J = np.stack([_t3(cc, B1n, B1n, D1n), _t3(cc, B1n, D1n, B1n),
-                  _t3(cc, D1n, B1n, B1n)], axis=-1).reshape(ne, p1 ** 3, 3, 3)
-    Jz = np.linalg.inv(J)[..., 2]                               # [ne, L, 3]
-    nex, ney, _ = space.elem_dims
-    nte = nex * ney
-    Jz_face = Jz[-nte:].reshape(nte, p1, p1 * p1, 3)[:, p]
+                  _t3(cc, D1n, B1n, B1n)], axis=-1).reshape(
+                      len(cc), p1 ** 3, 3, 3)
+    Jz = np.linalg.inv(J)[..., 2]                               # [m, L, 3]
     if np.max(np.abs(Jz - Jz[:, :1, :])) > dtype_tol * np.max(np.abs(Jz)):
-        return None, Jz_face
-    Jz = Jz[:, 0, :]
-    scale = np.max(np.abs(Jz[:, 2]))
-    if scale == 0.0 or np.max(np.abs(Jz[:, :2])) > 1e-13 * scale:
-        return None, Jz_face
-    jz_top = Jz[-nte:, 2]
-    if np.max(jz_top) - np.min(jz_top) > 1e-13 * scale:
-        return None, Jz_face
-    return float(jz_top[0]), Jz_face
+        return None, Jz
+    Jz = Jz[:, :1, :]
+    scale = np.max(np.abs(Jz[..., 2]))
+    if (scale == 0.0 or np.max(np.abs(Jz[..., :2])) > 1e-13 * scale
+            or np.ptp(Jz[..., 2]) > 1e-13 * scale):
+        return None, Jz
+    return float(Jz[0, 0, 2]), Jz

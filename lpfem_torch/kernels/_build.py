@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``build/lpfem_torch/lib<name>-<source hash>.so`` under the checkout
 root (``.gitignore`` lists ``build/``), then loaded with ``ctypes``. The hash
-names the library after its source, so an edited kernel is rebuilt and a
-stale library is never loaded. Nothing here runs at import time.
+names the library after its source and the headers (``csrc/*.cuh``) beside
+it, so an edited kernel is rebuilt and a stale library is never loaded.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -39,9 +40,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

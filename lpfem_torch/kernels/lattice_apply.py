@@ -1,0 +1,144 @@
+"""Fused element-form Laplace apply on an affine structured lattice: CUDA
+kernel wrapper and its plain version.
+
+``y = A x`` with ``A = sum_e P_e^T Jr2^T diag(w3) C6[e] Jr2 P_e`` on the dof
+lattice ``ix + Dx*(iy + Dy*iz)`` of ``dims = (nex, ney, nez)`` order-p
+elements (``Dx = p*nex`` on a periodic x axis, else ``p*nex + 1``; y and z
+are never periodic): every element's (p+1)^3 window of ``x``, the reference
+gradient at the Gauss points, the affine metric ``w3[k] C6[e]`` (``C6
+[ne, 6]`` lattice-major, ``w3 [Q]``), the transposed gradient, and the sum
+over the elements that share a dof. ``ess_top`` makes the top z-plane an
+essential boundary: read as zero, and the output's top plane is the input's
+(``lpfem/operators.py:835-837``).
+
+- :func:`lattice_affine_apply` runs ``csrc/lattice_apply.cu`` (the port of
+  the TPU kernel ``lpfem/kernels/lattice_apply.py::lattice_affine_apply``,
+  B2) on CUDA tensors and counts each call in ``LAUNCHES``. It takes the
+  plain version only because its input lies on the CPU; on a CUDA tensor it
+  launches the kernel or raises.
+- :func:`lattice_affine_apply_reference` is the plain PyTorch version: the
+  index gather of every element's window, ``pa_apply_affine_reference``, and
+  the fold with ``index_add_`` (the three steps the kernel fuses).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .pa_apply import check_tables, pa_apply_affine_reference
+
+__all__ = ["lattice_elem_dofs", "lattice_affine_apply",
+           "lattice_affine_apply_reference"]
+
+LAUNCHES = 0          # calls of the kernel entry through lattice_affine_apply
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def _dof_dims(p: int, dims, periodic) -> tuple[int, int, int]:
+    if periodic[1] or periodic[2]:
+        raise ValueError("only the x axis may be periodic")
+    nex, ney, nez = dims
+    return p * nex + (0 if periodic[0] else 1), p * ney + 1, p * nez + 1
+
+
+@functools.lru_cache(maxsize=8)
+def _elem_dofs(p: int, dims, periodic, device: str) -> torch.Tensor:
+    Dx, Dy, _ = _dof_dims(p, dims, periodic)
+    ar = torch.arange(p + 1)
+    gx, gy, gz = (torch.arange(n)[:, None] * p + ar for n in dims)
+    if periodic[0]:
+        gx = gx % Dx
+    ed = (gx[None, None, :, None, None, :]
+          + Dx * (gy[None, :, None, None, :, None]
+                  + Dy * gz[:, None, None, :, None, None]))
+    return ed.reshape(-1, (p + 1) ** 3).to(device)
+
+
+def lattice_elem_dofs(p: int, dims, periodic, device) -> torch.Tensor:
+    """[ne, (p+1)^3] int64: the lattice dofs of every element, elements
+    lattice-major, local nodes x fastest (the last few tables are kept)."""
+    return _elem_dofs(p, tuple(int(n) for n in dims),
+                      tuple(bool(a) for a in periodic), str(device))
+
+
+def lattice_affine_apply_reference(x: torch.Tensor, C6: torch.Tensor,
+                                   w3: torch.Tensor, B: torch.Tensor,
+                                   D: torch.Tensor, dims, periodic,
+                                   ess_top: bool = False) -> torch.Tensor:
+    """Plain PyTorch ``A x``: gather, per-element apply, fold."""
+    p = B.shape[1] - 1
+    Dx, Dy, Dz = _dof_dims(p, dims, periodic)
+    ed = lattice_elem_dofs(p, dims, periodic, x.device)
+    u = x
+    if ess_top:
+        u = x.clone()
+        u[-Dx * Dy:] = 0.0
+    ye = pa_apply_affine_reference(u[ed], C6, w3, B, D)
+    y = torch.zeros_like(x).index_add_(0, ed.reshape(-1), ye.reshape(-1))
+    if ess_top:
+        y[-Dx * Dy:] = x[-Dx * Dy:]
+    return y
+
+
+def _check(x, C6, w3, B, D, dims, periodic) -> tuple[int, int]:
+    """Validate what the kernel takes; returns (p, q)."""
+    if x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous dof vector")
+    ne = dims[0] * dims[1] * dims[2]
+    q3 = B.shape[0] ** 3 if B.dim() == 2 else 0
+    p1, q = check_tables("lattice_affine_apply", x,
+                         [("B", B, None), ("D", D, None),
+                          ("C6", C6, (ne, 6)), ("w3", w3, (q3,))])
+    Dx, Dy, Dz = _dof_dims(p1 - 1, dims, periodic)
+    if min(dims) < 1 or x.shape[0] != Dx * Dy * Dz:
+        raise ValueError(f"x of {x.shape[0]} dofs, expected {Dx * Dy * Dz} "
+                         f"for {tuple(dims)} elements of order {p1 - 1}")
+    if periodic[0] and dims[0] < 2:
+        raise ValueError("periodic x needs at least 2 elements (an element "
+                         "would meet itself across the seam)")
+    if ne * p1 ** 3 >= 2 ** 31:
+        raise ValueError("lattice too large for the kernel's int sizes")
+    return p1 - 1, q
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    """The library's C entry for ``dtype`` (built at first use)."""
+    from ._build import load_library
+    lib = load_library("lattice_apply")
+    fn = (lib.lattice_affine_apply_f32 if dtype == torch.float32
+          else lib.lattice_affine_apply_f64)
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def lattice_affine_apply(x: torch.Tensor, C6: torch.Tensor, w3: torch.Tensor,
+                         B: torch.Tensor, D: torch.Tensor, dims, periodic,
+                         ess_top: bool = False) -> torch.Tensor:
+    """``A x`` on the flat dof vector ``x``: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return lattice_affine_apply_reference(x, C6, w3, B, D, dims,
+                                              periodic, ess_top)
+    if x.device.type != "cuda":
+        raise ValueError(f"lattice_affine_apply: unsupported device "
+                         f"{x.device}")
+    p, q = _check(x, C6, w3, B, D, dims, periodic)
+    fn = _entry(x.dtype)
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), C6.data_ptr(), w3.data_ptr(), B.data_ptr(),
+                D.data_ptr(), y.data_ptr(), *(int(n) for n in dims), p, q,
+                int(bool(periodic[0])), int(bool(ess_top)), stream)
+    if rc != 0:
+        raise RuntimeError(f"lattice_affine_apply kernel launch failed: "
+                           f"CUDA error {rc}")
+    LAUNCHES += 1
+    return y

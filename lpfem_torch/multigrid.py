@@ -1,17 +1,19 @@
 """p-multigrid preconditioner with Chebyshev-Jacobi smoothing.
 
-Counterpart of ``lpfem.multigrid`` on the structured lattices, over either
-operator (:class:`~lpfem_torch.operators.SeparableLattice` on the Cartesian
-tank, :class:`~lpfem_torch.operators.ElementLaplace` on a curved lattice):
-the same mesh and geometry at orders p -> p/2 -> ... -> 1, then h-coarsened
-p=1 levels (2x2x2 element merges, Cartesian lattices only) while the bottom
-level is above ``max(coarse_dense_limit, h_coarsen_min_dofs)``; per-axis
-dense interpolation transfers (the lattice fast path of ``lpfem/
-multigrid.py:301-316``, which acts in reference space and so serves curved
-lattices unchanged); a Chebyshev(degree k) Jacobi smoother on every level; a
-dense-inverse coarse solve (inverted in float64 on the host) up to
-``coarse_dense_limit`` dofs, else Chebyshev-16. The essential set is the top
-z-plane on every level.
+Counterpart of ``lpfem.multigrid``: the same mesh and geometry at orders
+p -> p/2 -> ... -> 1, each level's operator chosen by
+:func:`~lpfem_torch.operators.laplace_operator` (lpfem builds a ``LaplacePA``
+per level, which chooses the same way); then h-coarsened p=1 levels (2x2x2
+element merges, where the merged mesh is still a Cartesian lattice) while
+the bottom level is above ``max(coarse_dense_limit, h_coarsen_min_dofs)``.
+Between two lattice levels the transfer is three per-axis dense
+interpolations (the lattice fast path of ``lpfem/multigrid.py:301-316``,
+which acts in reference space and so serves sheared and curved lattices
+unchanged); otherwise the element path (``lpfem/multigrid.py:148-182``). A
+Chebyshev(degree k) Jacobi smoother on every level; a dense-inverse coarse
+solve (inverted in float64 on the host) up to ``coarse_dense_limit`` dofs,
+else Chebyshev-16. The essential set is the free surface
+(``space.top_plane_dofs()``) on every level.
 
 ``estimate_lmax`` starts from a seeded ``torch.Generator``; the reference
 starts from ``jax.random.normal(PRNGKey(0))``, which cannot be reproduced,
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from .elements import basis_1d, lagrange_eval
-from .operators import ElementLaplace, SeparableLattice
+from .operators import laplace_operator
 
 __all__ = ["ChebyshevSmoother", "PMultigrid", "estimate_lmax"]
 
@@ -100,7 +102,7 @@ class _Level:
     """One hierarchy level: operator with the top-plane constraint, the
     free-dof mask and the constrained Jacobi inverse diagonal."""
 
-    def __init__(self, op: SeparableLattice | ElementLaplace):
+    def __init__(self, op):
         self.op = op
         dev = op.device
         top = op.space.top_plane_dofs()
@@ -127,19 +129,49 @@ class _Transfer:
         self.fine_shape = tuple(reversed(fine.dof_dims))
         self.coarse_shape = tuple(reversed(coarse.dof_dims))
 
-    def prolong(self, fine: _Level, xc: torch.Tensor) -> torch.Tensor:
+    def prolong(self, fine: _Level, coarse: _Level,
+                xc: torch.Tensor) -> torch.Tensor:
         v = xc.reshape(self.coarse_shape)
         v = torch.einsum("ZC,Cyx->Zyx", self.P1z, v)
         v = torch.einsum("YC,zCx->zYx", self.P1y, v)
         v = torch.einsum("XC,zyC->zyX", self.P1x, v)
         return v.reshape(-1) * fine.free
 
-    def restrict(self, coarse: _Level, rf: torch.Tensor) -> torch.Tensor:
+    def restrict(self, fine: _Level, coarse: _Level,
+                 rf: torch.Tensor) -> torch.Tensor:
         v = rf.reshape(self.fine_shape)
         v = torch.einsum("ZC,Zyx->Cyx", self.P1z, v)
         v = torch.einsum("YC,zYx->zCx", self.P1y, v)
         v = torch.einsum("XC,zyX->zyC", self.P1x, v)
         return v.reshape(-1) * coarse.free
+
+
+class _ElementTransfer:
+    """The same interpolation between two orders on one mesh without a
+    lattice, element by element (``lpfem/multigrid.py:148-182``): gather the
+    coarse E-vector, interpolate with ``I3 [Lf, Lc]``, fold on the fine
+    level and divide by the node multiplicity (the copies of a shared node
+    are equal); restriction is the exact transpose. Both levels'
+    operators are :class:`~lpfem_torch.operators.ElementLaplace`."""
+
+    def __init__(self, fine: _Level, pc: int, pf: int):
+        op = fine.op
+        I1, _ = lagrange_eval(basis_1d(pc).nodes, basis_1d(pf).nodes)
+        I3 = np.einsum("cz,by,ax->cbazyx", I1, I1, I1).reshape(
+            (pf + 1) ** 3, (pc + 1) ** 3)
+        self.I3 = torch.tensor(I3).to(device=op.device, dtype=op.dtype)
+        self.inv_mult = torch.tensor(1.0 / op.space.node_mult).to(
+            device=op.device, dtype=op.dtype)
+
+    def prolong(self, fine: _Level, coarse: _Level,
+                xc: torch.Tensor) -> torch.Tensor:
+        uf = coarse.op.gather(xc) @ self.I3.T
+        return fine.op.scatter(uf) * self.inv_mult * fine.free
+
+    def restrict(self, fine: _Level, coarse: _Level,
+                 rf: torch.Tensor) -> torch.Tensor:
+        uc = fine.op.gather(rf * self.inv_mult) @ self.I3
+        return coarse.op.scatter(uc) * coarse.free
 
 
 class PMultigrid:
@@ -153,14 +185,12 @@ class PMultigrid:
     separate estimate on the same operator returns.
     """
 
-    def __init__(self, fine_op: SeparableLattice | ElementLaplace,
-                 smooth_degree: int = 3,
+    def __init__(self, fine_op, smooth_degree: int = 3,
                  coarse_dense_limit: int = 6000, coarse_cheb_degree: int = 16,
                  h_coarsen_min_dofs: int = 20000,
                  lmax: list[float] | None = None):
         space = fine_op.space
         dtype, device = fine_op.dtype, fine_op.device
-        op_cls = type(fine_op)
         orders = []
         q = space.p
         while q > 1:
@@ -169,13 +199,19 @@ class PMultigrid:
         orders.append(1)
         self.orders = orders
 
-        ops = [fine_op] + [op_cls(space.with_order(pl), dtype, device)
-                           for pl in orders[1:]]
+        ops = [fine_op] + [laplace_operator(space.with_order(pl), dtype,
+                                            device) for pl in orders[1:]]
         self.levels = [_Level(op) for op in ops]
-        self.transfers = [
-            _Transfer(ops[i].space, ops[i + 1].space, orders[i + 1],
-                      orders[i], space.elem_dims, dtype, device)
-            for i in range(len(orders) - 1)]
+        self.transfers = []
+        for i in range(len(orders) - 1):
+            fs, cs = ops[i].space, ops[i + 1].space
+            if fs.dof_dims is not None and cs.dof_dims is not None:
+                tr = _Transfer(fs, cs, orders[i + 1], orders[i],
+                               fs.elem_dims, dtype, device)
+            else:
+                tr = _ElementTransfer(self.levels[i], orders[i + 1],
+                                      orders[i])
+            self.transfers.append(tr)
 
         # h-coarsening below p=1: p=1 on the fine grid shares its dof lattice
         # with p=2 on the half grid, so the transfer is the p=1 -> p=2
@@ -187,7 +223,7 @@ class PMultigrid:
             sp_c = bot.coarsen()
             if sp_c is None:
                 break
-            self.levels.append(_Level(op_cls(sp_c, dtype, device)))
+            self.levels.append(_Level(laplace_operator(sp_c, dtype, device)))
             self.transfers.append(_Transfer(bot, sp_c, 1, 2, sp_c.elem_dims,
                                             dtype, device))
             self.orders = self.orders + [1]
@@ -226,9 +262,10 @@ class PMultigrid:
         lv = self.levels[li]
         tr = self.transfers[li]
         z = sm(r)                                   # pre-smooth from zero
-        rc = tr.restrict(self.levels[li + 1], r - lv.apply_c(z))
+        coarse = self.levels[li + 1]
+        rc = tr.restrict(lv, coarse, r - lv.apply_c(z))
         zc = self._vcycle(li + 1, rc)
-        z = z + tr.prolong(lv, zc)
+        z = z + tr.prolong(lv, coarse, zc)
         return sm(r, z0=z)                          # post-smooth
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:

@@ -1,31 +1,37 @@
-"""Laplace operators on the structured lattices, and the free-surface trace.
+"""Laplace operators, the rule that picks one for a space, and the
+free-surface trace.
 
-Counterpart of the parts of ``lpfem.operators`` the ported paths use:
+Counterpart of ``lpfem.operators``. lpfem's ``LaplacePA`` chooses between
+four applies inside one class; here each is a class and
+:func:`laplace_operator` applies lpfem's rule (``lpfem/operators.py:532-548,
+601-645, 742-760``), minus the TPU's lane rules:
 
-- :class:`SeparableLattice` — the assembled tensor-product (Kronecker) form
-  ``A = Mz (x) My (x) Kx + Mz (x) Ky (x) Mx + Kz (x) My (x) Mx`` of the
-  stiffness on an axis-aligned tank grid (``lpfem.operators.
-  SeparableLattice``). The 1D bands are assembled in float64 on the host,
-  then cast to the operator dtype; applies go through the CUDA kernel
-  ``kernels.sep_apply`` (its plain version on CPU tensors). ``diag`` is the
-  assembled diagonal (``LaplacePA.diag``), ``constrained_rhs`` the
-  ``FormLinearSystem`` elimination, ``assemble_scipy`` the sparse matrix the
-  dense coarse solve inverts.
-- :class:`ElementLaplace` — the element form of ``lpfem.operators.
-  LaplacePA`` on a curved element lattice (:class:`~lpfem_torch.space.
-  CurvedLatticeSpace`), the operator of every curved mesh: the gather of
-  every element's dofs, the per-element apply ``kernels.pa_apply`` (CUDA
-  port of B3b), the fold back. Metric ``G6q [ne, 6Q]`` in component-major
-  layout (``lpfem/operators.py:544-545``) and ``Jr2 [3Q, L]`` are buffers.
-- :class:`NodalZDerivative` — the free-surface trace of MFEM's nodal
-  ``GetDerivative(1, 2, w)`` on z-extruded geometry, which reads only the top
-  ``p+1`` dof planes (``NodalZDerivative.top_trace``).
+1. :class:`SeparableLattice` — an axis-aligned box lattice with separable
+   spacings: the assembled tensor-product (Kronecker) form
+   ``A = Mz (x) My (x) Kx + Mz (x) Ky (x) Mx + Kz (x) My (x) Mx``
+   (``lpfem.operators.SeparableLattice``), 1D bands assembled in float64 on
+   the host; applies go through the CUDA kernel ``kernels.sep_apply`` (B1).
+2. :class:`AffineLatticeLaplace` — any other lattice of affine elements
+   (sheared or rotated tanks), y and z not periodic: the whole element-form
+   apply in one fused CUDA kernel, ``kernels.lattice_apply`` (B2).
+3. :class:`ElementLaplace` with the affine metric ``C6 [ne, 6]`` — affine
+   elements without a usable lattice (z-extruded or unstructured meshes from
+   files): gather, ``kernels.pa_apply.pa_apply_affine`` (B3a), fold.
+4. :class:`ElementLaplace` with the full metric ``G6q [ne, 6Q]`` — curved
+   elements: gather, ``kernels.pa_apply.pa_apply_element`` (B3b), fold.
 
-The essential set is always the top z-plane (the free surface) here, so the
-constrained forms take no index list.
+Every wrapper takes its kernel's plain version on CPU tensors. All classes
+share ``apply``, ``constrained_apply_top`` (identity rows and columns on the
+free-surface dofs ``space.top_plane_dofs()``), ``constrained_rhs``, ``diag``
+and ``assemble_scipy``.
+
+:class:`NodalZDerivative` is the free-surface trace of MFEM's nodal
+``GetDerivative(1, 2, w)``.
 """
 
 from __future__ import annotations
+
+from functools import cached_property
 
 import numpy as np
 import scipy.sparse as sp
@@ -34,12 +40,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from .elements import basis_1d
-from .geometry import geometric_factors, grad_interp_matrix, top_trace_geometry
-from .kernels.pa_apply import pa_apply_element
+from .geometry import (affine_c6, geometric_factors, grad_interp_matrix,
+                       surface_elements, top_trace_geometry)
+from .kernels.lattice_apply import lattice_affine_apply
+from .kernels.pa_apply import pa_apply_affine, pa_apply_element
 from .kernels.sep_apply import sep_apply
+from .mesh import HEX_VERTS
 from .space import LatticeSpace
 
-__all__ = ["SeparableLattice", "ElementLaplace", "NodalZDerivative"]
+__all__ = ["SeparableLattice", "AffineLatticeLaplace", "ElementLaplace",
+           "NodalZDerivative", "laplace_operator", "separable_spacings"]
 
 BAND_NAMES = ("Kx", "Mx", "Ky", "My", "Kz", "Mz")
 
@@ -86,50 +96,100 @@ def _band_matrix(band: np.ndarray, periodic: bool) -> sp.csr_matrix:
                          shape=(D, D))
 
 
-class _LatticeOperator(nn.Module):
-    """What the two operators share: the dof lattice, the device, and the
-    top-plane (free-surface) elimination of ``FormLinearSystem``."""
+def _strided_slice(idx: np.ndarray) -> slice | None:
+    """``idx`` (sorted) as a slice, when it is an arithmetic progression."""
+    if len(idx) == 1:
+        return slice(int(idx[0]), int(idx[0]) + 1)
+    step = int(idx[1] - idx[0])
+    if step > 0 and np.array_equal(idx, idx[0] + step * np.arange(len(idx))):
+        return slice(int(idx[0]), int(idx[-1]) + 1, step)
+    return None
+
+
+class _Operator(nn.Module):
+    """What the operators share: the space, the device, and the
+    free-surface elimination of ``FormLinearSystem``."""
+
+    def _init_common(self, space, dtype: torch.dtype, q: int | None) -> None:
+        self.space = space
+        self.p, self.q = space.p, (space.p + 1 if q is None else q)
+        self.n_dofs = space.n_dofs
+        self.dtype = dtype
 
     @property
     def device(self) -> torch.device:
         return next(self.buffers()).device
 
-    def _plane(self, x: torch.Tensor) -> torch.Tensor:
-        """[Dz, Dy*Dx] view of a flat dof vector."""
-        return x.view(self.dof_dims[2], -1)
+    @cached_property
+    def ess(self) -> torch.Tensor:
+        """The free-surface dofs ``space.top_plane_dofs()``, on the device."""
+        return torch.as_tensor(self.space.top_plane_dofs(),
+                               device=self.device)
 
-    def constrained_rhs(self, b: torch.Tensor, ess_vals: torch.Tensor):
+    def constrained_rhs(self, b: torch.Tensor, ess_vals: torch.Tensor,
+                        ess: torch.Tensor | None = None):
         """(B, x_bc): eliminated right-hand side and boundary lift of the
-        system with ``x = ess_vals`` on the top plane — ``B = b - A x_bc`` on
-        free dofs, ``ess_vals`` on the plane."""
+        system with ``x[ess] = ess_vals`` — ``B = b - A x_bc`` on free dofs,
+        ``ess_vals`` on the essential ones (``lpfem.operators.LaplacePA.
+        constrained_rhs``). ``ess``: the free-surface dofs in the order of
+        ``ess_vals`` (default: sorted, the lattice order of a top plane)."""
+        ess = self.ess if ess is None else ess
         x_bc = torch.zeros_like(b)
-        self._plane(x_bc)[-1] = ess_vals
+        x_bc[ess] = ess_vals
         B = b - self.apply(x_bc)
-        self._plane(B)[-1] = ess_vals
+        B[ess] = ess_vals
         return B, x_bc
 
 
-class SeparableLattice(_LatticeOperator):
-    """Assembled Kronecker Laplace on a :class:`LatticeSpace`.
+def separable_spacings(space):
+    """(hx, hy, hz) per-element widths when the space is a lattice of
+    axis-aligned boxes whose widths depend only on their own axis index —
+    the test of ``lpfem.operators.SeparableLattice.build``
+    (``lpfem/operators.py:346-380``) — else None."""
+    if isinstance(space, LatticeSpace):
+        return space.spacings
+    if space.dof_dims is None or space.periodic[1] or space.periodic[2]:
+        return None
+    mesh = space.mesh
+    if mesh.geom_nodes is not None and mesh.geom_order > 1:
+        return None              # the corners cannot vouch for curved interiors
+    nex, ney, nez = space.elem_dims
+    if any(d <= 2 * space.p and per
+           for d, per in zip(space.dof_dims, space.periodic)):
+        return None              # band offsets would alias mod D
+    cc = np.asarray(mesh.corner_coords).reshape(nez, ney, nex, 8, 3)
+    lo, hi = cc.min(axis=3), cc.max(axis=3)
+    h = hi - lo                                    # [nez, ney, nex, 3]
+    box = lo[..., None, :] + HEX_VERTS.astype(np.float64) * h[..., None, :]
+    tol = 1e-12 * (np.max(np.abs(cc)) + np.max(h))
+    if np.max(np.abs(cc - box)) > tol:
+        return None              # sheared / curved elements
+    for a, ax in ((0, (0, 1)), (1, (0, 2)), (2, (1, 2))):
+        if np.max(np.ptp(h[..., a], axis=ax)) > tol:
+            return None
+    return h[0, 0, :, 0], h[0, :, 0, 1], h[:, 0, 0, 2]
+
+
+class SeparableLattice(_Operator):
+    """Assembled Kronecker Laplace on a lattice of axis-aligned boxes: a
+    :class:`LatticeSpace`, or a mesh-based lattice space with the
+    ``spacings`` that :func:`separable_spacings` found.
 
     Buffers ``Kx, Mx, Ky, My, Kz, Mz`` hold the 1D bands ``[2p+1, D_a]`` in
     ``dtype``; ``bands64`` keeps the float64 host tables.
     """
 
-    def __init__(self, space: LatticeSpace, dtype: torch.dtype,
-                 device, q: int | None = None):
+    def __init__(self, space, dtype: torch.dtype, device,
+                 q: int | None = None, spacings=None):
         super().__init__()
-        p = space.p
+        self._init_common(space, dtype, q)
+        p = self.p
         if space.periodic[0] and space.dof_dims[0] <= 2 * p:
             raise ValueError("periodic x needs Dx > 2p (band offsets alias)")
-        self.space = space
-        self.p, self.q = p, (p + 1 if q is None else q)
         self.dof_dims = space.dof_dims
         self.periodic = space.periodic
-        self.n_dofs = space.n_dofs
-        self.dtype = dtype
         Khat, Mhat = _reference_matrices(p, self.q)
-        hx, hy, hz = space.spacings
+        hx, hy, hz = space.spacings if spacings is None else spacings
         px = space.periodic[0]
         self.bands64 = (_bands_1d(hx, p, px, Khat, True),
                         _bands_1d(hx, p, px, Mhat, False),
@@ -187,13 +247,16 @@ def _fold_table(elem_dofs: np.ndarray, n: int) -> np.ndarray:
     """[n, m] int64: the positions of every dof's element copies in the
     flattened E-vector ``x[elem_dofs]``, in element order, padded with the
     position one past its end (m = the largest multiplicity, 8 on a hex
-    lattice)."""
+    lattice). Negative entries of ``elem_dofs`` have no dof and are left
+    out."""
     flat = np.asarray(elem_dofs).ravel()
-    order = np.argsort(flat, kind="stable")
-    counts = np.bincount(flat, minlength=n)
+    pos = np.flatnonzero(flat >= 0)
+    dof = flat[pos]
+    order = np.argsort(dof, kind="stable")
+    counts = np.bincount(dof, minlength=n)
     start = np.cumsum(counts) - counts
     table = np.full((n, counts.max()), flat.size, dtype=np.int64)
-    table[flat[order], np.arange(flat.size) - start[flat[order]]] = order
+    table[dof[order], np.arange(dof.size) - start[dof[order]]] = pos[order]
     return table
 
 
@@ -208,64 +271,83 @@ def _fold(ye: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 _SYM = ((0, 1, 2), (1, 3, 4), (2, 4, 5))   # G6 component of G[i][j]
 
 
-class ElementLaplace(_LatticeOperator):
-    """Element-form (partial assembly) Laplace on a curved element lattice:
-    ``A x = scatter(pa_apply_element(gather(x)))`` — lpfem's
-    ``LaplacePA.apply`` on a curved mesh (``lpfem/operators.py:689-700,
-    760``), whose TPU kernel is B3b.
+class ElementLaplace(_Operator):
+    """Element-form (partial assembly) Laplace on any space:
+    ``A x = scatter(apply_local(gather(x)))`` — lpfem's ``LaplacePA.apply``
+    through its element kernels (``lpfem/operators.py:689-700, 760``).
+
+    The metric is full (``C6=None``: ``G6q [ne, 6Q]``, curved elements, TPU
+    kernel B3b) or affine (``C6 [ne, 6]`` from ``geometry.affine_c6`` with
+    the Gauss-weight products ``w3 [Q]``, TPU kernel B3a).
 
     The E-vector transfer is MFEM's element restriction: ``gather`` one
     index into ``elem_dofs``, ``scatter`` its transpose as a gather and a
-    sum over each dof's copies (:func:`_fold`). lpfem's gather-free
-    ``StructuredLattice`` cascade (``lpfem/operators.py:178-245``) works
-    around the TPU's slow gathers; here its ~20 reshapes and strided adds
-    per apply would be ~20 kernel launches, against one in and three
-    back.
+    sum over each dof's copies (:func:`_fold`). lpfem has three transfers
+    that avoid the TPU's slow gathers — the ``StructuredLattice`` cascade of
+    reshapes and strided adds, the ``ColumnLattice`` column gather with
+    z-unfolds on extruded meshes, and the plain index on the rest
+    (``lpfem/operators.py:178-283, 680-687, 762-769``). Here all three are
+    this one pair of index tables over the space's own numbering (lattice,
+    column or topological): one launch in and three back, where the
+    cascades would be ~20.
 
-    Buffers, on ``device``: ``G6q [ne, 6Q]`` (the metric ``w |J| J^-1
-    J^-T``, computed in float64 on the host and rounded once to ``dtype``,
-    as lpfem's ``geometric_factors``), ``Jr2 [3Q, L]`` (gradient
+    Buffers, on ``device``: the metric (computed in float64 on the host and
+    rounded once to ``dtype``, as lpfem's), ``Jr2 [3Q, L]`` (gradient
     interpolation), ``B``/``D`` ``[q, p+1]`` (its 1D factors, which the
-    sum-factorised kernel reads), ``free_e [ne, L]`` (0 on top-plane dofs),
-    and the int64 ``elem_dofs [ne, L]``/``fold [n_dofs, 8]``. ``G64``
-    keeps the float64 host metric for the assembled matrix.
+    sum-factorised kernels read). The int64 ``elem_dofs [ne, L]`` /
+    ``fold [n_dofs, m]`` and the mask ``free_e [ne, L]`` (0 on free-surface
+    dofs) are made on the device at first use. ``G64`` / ``C64`` keep the
+    float64 host metric for the assembled matrix.
     """
 
     def __init__(self, space, dtype: torch.dtype, device,
-                 q: int | None = None):
+                 q: int | None = None, C6: np.ndarray | None = None):
         super().__init__()
-        p = space.p
-        q = p + 1 if q is None else q
-        self.space = space
-        self.p, self.q = p, q
+        self._init_common(space, dtype, q)
         self.dof_dims = space.dof_dims
         self.periodic = space.periodic
-        self.n_dofs = space.n_dofs
-        self.dtype = dtype
-        self.G64 = geometric_factors(space, q)               # [ne, Q, 6]
-        ne, Q, _ = self.G64.shape
+        p, q = self.p, self.q
         b = basis_1d(p, q)
+        self.C64 = C6
+        self.G64 = None if C6 is not None else geometric_factors(space, q)
 
         def buf(a):
             return torch.tensor(a, dtype=torch.float64).to(device=device,
                                                            dtype=dtype)
 
-        self.register_buffer("G6q", buf(self.G64.transpose(0, 2, 1)
-                                        .reshape(ne, 6 * Q)))
+        if C6 is not None:
+            self.register_buffer("C6", buf(C6))
+            self.register_buffer("w3", buf(np.einsum(
+                "c,b,a->cba", b.qwts, b.qwts, b.qwts).reshape(-1)))
+        else:
+            ne, Q, _ = self.G64.shape                        # [ne, Q, 6]
+            self.register_buffer("G6q", buf(self.G64.transpose(0, 2, 1)
+                                            .reshape(ne, 6 * Q)))
         self.register_buffer("Jr2", buf(grad_interp_matrix(p, q)
-                                        .reshape(3 * Q, -1)))
+                                        .reshape(3 * q ** 3, -1)))
         self.register_buffer("B", buf(b.B))
         self.register_buffer("D", buf(b.D))
-        ed = space.elem_dofs
-        free = np.ones(space.n_dofs)
-        free[space.top_plane_dofs()] = 0.0
-        self.register_buffer("free_e", buf(free[ed]))
-        self.register_buffer("elem_dofs", torch.as_tensor(ed, device=device))
-        self.register_buffer("fold", torch.as_tensor(
-            _fold_table(ed, space.n_dofs), device=device))
+        self._ess_slice = _strided_slice(space.top_plane_dofs())
+
+    # ------------------------------------------------- the E-vector transfer
+    @cached_property
+    def elem_dofs(self) -> torch.Tensor:
+        return torch.as_tensor(self.space.elem_dofs, device=self.device)
+
+    @cached_property
+    def fold(self) -> torch.Tensor:
+        return torch.as_tensor(_fold_table(self.space.elem_dofs, self.n_dofs),
+                               device=self.device)
+
+    @cached_property
+    def free_e(self) -> torch.Tensor:
+        free = np.ones(self.n_dofs)
+        free[self.space.top_plane_dofs()] = 0.0
+        return torch.tensor(free[self.space.elem_dofs]).to(
+            device=self.device, dtype=self.dtype)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """[n_dofs] -> E-vector [ne, L] in lattice-major element order."""
+        """[n_dofs] -> E-vector [ne, L] in the space's element order."""
         return x[self.elem_dofs]
 
     def scatter(self, ye: torch.Tensor) -> torch.Tensor:
@@ -273,9 +355,15 @@ class ElementLaplace(_LatticeOperator):
         ``gather``)."""
         return _fold(ye, self.fold)
 
+    # ------------------------------------------------------------ the applies
+    def _local(self, u: torch.Tensor) -> torch.Tensor:
+        if self.C64 is not None:
+            return pa_apply_affine(u, self.C6, self.w3, self.B, self.D)
+        return pa_apply_element(u, self.G6q, self.B, self.D)
+
     def apply_local(self, x: torch.Tensor) -> torch.Tensor:
         """Per-element contributions [ne, L] (the E-vector, pre-fold)."""
-        return pa_apply_element(self.gather(x), self.G6q, self.B, self.D)
+        return self._local(self.gather(x))
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x on the flat dof vector."""
@@ -283,33 +371,62 @@ class ElementLaplace(_LatticeOperator):
 
     forward = apply
 
+    def _copy_ess(self, y: torch.Tensor, x: torch.Tensor) -> None:
+        """y[ess] = x[ess], as one strided copy where the free surface is a
+        slice of the numbering (the top plane of a lattice, the last level
+        of every column)."""
+        sl = self._ess_slice
+        if sl is not None:
+            y[sl] = x[sl]
+        else:
+            y[self.ess] = x[self.ess]
+
     def constrained_apply_top(self, x: torch.Tensor) -> torch.Tensor:
-        """Apply with identity rows/cols on the top z-plane: the top plane
-        of the input read as zero, the output's top plane set to the
-        input's (``lpfem/operators.py:835-837``)."""
-        y = self.scatter(pa_apply_element(self.gather(x) * self.free_e,
-                                          self.G6q, self.B, self.D))
-        self._plane(y)[-1] = self._plane(x)[-1]
+        """Apply with identity rows/cols on the free-surface dofs: read as
+        zero on input, the output's set to the input's
+        (``lpfem/operators.py:835-837``)."""
+        y = self.scatter(self._local(self.gather(x) * self.free_e))
+        self._copy_ess(y, x)
         return y
 
-    def diag(self) -> torch.Tensor:
-        """Assembled diagonal in the operator dtype from the buffers, the
-        sums of ``LaplacePA.diag`` (``lpfem/operators.py:789-796``)."""
+    # ------------------------------------------------- diagonal and assembly
+    def _element_diag(self) -> torch.Tensor:
+        """[ne, L] element diagonals in the operator dtype from the buffers,
+        the sums of ``LaplacePA.diag`` (``lpfem/operators.py:776-796``)."""
         Q = self.q ** 3
         Jx, Jy, Jz = self.Jr2[:Q], self.Jr2[Q:2 * Q], self.Jr2[2 * Q:]
+        pairs = ((1, Jx, Jx), (2, Jx, Jy), (2, Jx, Jz), (1, Jy, Jy),
+                 (2, Jy, Jz), (1, Jz, Jz))
+        if self.C64 is not None:
+            # rank-1 metric: d_e = C6 @ W6, the quadrature sums in [6, L]
+            W6 = torch.stack([m * torch.einsum("q,ql,ql->l", self.w3, a, b)
+                              for m, a, b in pairs])
+            return self.C6 @ W6
         G = self.G6q.view(-1, 6, Q)
-        d_e = (G[:, 0] @ (Jx * Jx) + 2 * (G[:, 1] @ (Jx * Jy))
-               + 2 * (G[:, 2] @ (Jx * Jz)) + G[:, 3] @ (Jy * Jy)
-               + 2 * (G[:, 4] @ (Jy * Jz)) + G[:, 5] @ (Jz * Jz))
-        return self.scatter(d_e)
+        return sum(m * (G[:, i] @ (a * b))
+                   for i, (m, a, b) in enumerate(pairs))
 
-    def element_matrices(self) -> torch.Tensor:
-        """Dense element stiffness matrices [ne, L, L], float64 on the
-        operator's device: ``sum_ij Jr_i^T diag(G_ij) Jr_j``
-        (``lpfem/operators.py:869-886``)."""
+    def diag(self) -> torch.Tensor:
+        """Assembled diagonal (MFEM ``OperatorJacobiSmoother`` source)."""
+        return self.scatter(self._element_diag())
+
+    def element_matrices(self, elems: slice = slice(None)) -> torch.Tensor:
+        """Dense element stiffness matrices [ne, L, L] (of the elements
+        ``elems``), float64 on the operator's device:
+        ``sum_ij Jr_i^T diag(G_ij) Jr_j`` (``lpfem/operators.py:869-886``)."""
         dev = self.device
         Jr = torch.tensor(grad_interp_matrix(self.p, self.q), device=dev)
-        G = torch.tensor(self.G64, device=dev)                # [ne, Q, 6]
+        if self.C64 is not None:
+            b = basis_1d(self.p, self.q)
+            w3 = torch.tensor(np.einsum("c,b,a->cba", b.qwts, b.qwts,
+                                        b.qwts).reshape(-1), device=dev)
+            K = torch.einsum("q,iqk,jql->ijkl", w3, Jr, Jr)
+            C = torch.tensor(self.C64[elems], device=dev)
+            C6f = torch.stack([torch.stack([C[:, _SYM[i][j]]
+                                            for j in range(3)], dim=-1)
+                               for i in range(3)], dim=-2)      # [ne, 3, 3]
+            return torch.einsum("eij,ijkl->ekl", C6f, K)
+        G = torch.tensor(self.G64[elems], device=dev)         # [ne, Q, 6]
         A = None
         for i in range(3):
             for j in range(3):
@@ -318,8 +435,8 @@ class ElementLaplace(_LatticeOperator):
         return A
 
     def assemble_scipy(self) -> sp.csr_matrix:
-        """Assembled float64 sparse matrix (lattice order), duplicates
-        summed (``lpfem/operators.py:888-898``)."""
+        """Assembled float64 sparse matrix, duplicates summed
+        (``lpfem/operators.py:888-898``)."""
         Ae = self.element_matrices().cpu().numpy()
         ed = self.space.elem_dofs
         L = ed.shape[1]
@@ -329,70 +446,149 @@ class ElementLaplace(_LatticeOperator):
                              shape=(self.n_dofs, self.n_dofs)).tocsr()
 
 
+class AffineLatticeLaplace(ElementLaplace):
+    """Element-form Laplace on a lattice of affine elements, applied by one
+    fused kernel: ``kernels.lattice_apply`` (TPU kernel B2) reads every
+    element's window from ``x``, applies the affine metric and folds into
+    ``y``, with the top-plane constraint inside. lpfem runs it where the
+    space has a lattice, the metric is affine and y, z are not periodic,
+    and the Kronecker form does not apply (``lpfem/operators.py:601-645,
+    752-759, 827-834``). Diagonal, element matrices and assembly are
+    :class:`ElementLaplace`'s."""
+
+    def __init__(self, space, dtype: torch.dtype, device,
+                 q: int | None = None, C6: np.ndarray | None = None):
+        if space.dof_dims is None or space.periodic[1] or space.periodic[2]:
+            raise ValueError("AffineLatticeLaplace needs a dof lattice with "
+                             "y and z not periodic")
+        if C6 is None:
+            C6 = affine_c6(space, space.p + 1 if q is None else q,
+                           np.float32 if dtype == torch.float32
+                           else np.float64)
+            if C6 is None:
+                raise ValueError("the elements are not affine")
+        super().__init__(space, dtype, device, q, C6)
+
+    def _lattice_apply(self, x: torch.Tensor, ess_top: bool) -> torch.Tensor:
+        return lattice_affine_apply(x, self.C6, self.w3, self.B, self.D,
+                                    self.space.elem_dims, self.periodic,
+                                    ess_top)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return self._lattice_apply(x, False)
+
+    forward = apply
+
+    def constrained_apply_top(self, x: torch.Tensor) -> torch.Tensor:
+        return self._lattice_apply(x, True)
+
+
+def laplace_operator(space, dtype: torch.dtype, device, q: int | None = None):
+    """The Laplace operator lpfem's ``LaplacePA`` would run on ``space``
+    (the module docstring's rule): used for the fine operators and for every
+    multigrid level. The affine test is tied to ``dtype`` as lpfem's."""
+    h = separable_spacings(space)
+    if h is not None:
+        return SeparableLattice(space, dtype, device, q, spacings=h)
+    C6 = affine_c6(space, space.p + 1 if q is None else q,
+                   np.float32 if dtype == torch.float32 else np.float64)
+    if (C6 is not None and space.dof_dims is not None
+            and not space.periodic[1] and not space.periodic[2]):
+        return AffineLatticeLaplace(space, dtype, device, q, C6)
+    return ElementLaplace(space, dtype, device, q, C6)
+
+
 class NodalZDerivative(nn.Module):
     """Free-surface trace of MFEM's nodal ``GetDerivative(1, 2, w)``: the
     per-element nodal z-derivative averaged over the elements that share a
-    node (``Solvers/PF_linear_serial.cpp:175,268``), on the top plane, in
-    surface (lattice) order. Only the top element layer reaches the plane,
-    so only the top ``p+1`` dof planes are read.
+    node (``Solvers/PF_linear_serial.cpp:175,268``), at the surface dofs
+    ``ess`` (volume dofs in surface order; default: the space's top plane).
+    Only the elements that touch the surface are read.
 
     - On z-extruded geometry (always on a :class:`LatticeSpace`, where
-      ``jz = 1 / hz`` of the top layer; on a curved lattice when lpfem's
-      extrusion check passes, ``geometry.top_trace_geometry``) the average
-      collapses: ``w = jz * sum_m Dn[p, m] phi[z = Dz-1-p+m]``
-      (``NodalZDerivative.top_trace``).
-    - Otherwise the nodal derivative of every top-layer element at its top
-      face, ``sum_i dxi_i/dz * dphi/dxi_i``, folded onto the plane and
-      divided by the node multiplicity — lpfem's full ``__call__`` path
-      (``lpfem/operators.py:1051-1073``) restricted to the plane.
+      ``jz = 1 / hz`` of the top layer; elsewhere when lpfem's extrusion
+      check passes, ``geometry.top_trace_geometry``, and the numbering has
+      the layers — a lattice, or the columns of ``H1Space.extruded``) the
+      average collapses: ``w = jz * sum_m Dn[p, m] phi[z = Dz-1-p+m]`` on
+      the top ``p+1`` dof planes, or the last ``p+1`` levels of every column
+      (``NodalZDerivative.top_trace``, ``lpfem/operators.py:1016-1040``).
+    - Otherwise the nodal derivative ``sum_i dxi_i/dz * dphi/dxi_i`` of
+      every surface element, folded onto the surface dofs and divided by
+      the node multiplicity — lpfem's full ``__call__`` path
+      (``lpfem/operators.py:1051-1073``) restricted to the surface, with
+      three constants per element (lpfem's ``Jz3``) where the elements are
+      affine.
     """
 
-    def __init__(self, space, dtype: torch.dtype, device):
+    def __init__(self, space, dtype: torch.dtype, device, ess=None):
         super().__init__()
         p = space.p
         self.p, self.p1 = p, p + 1
-        self.dof_dims = space.dof_dims
         Dn = basis_1d(p).Dn
+        ess = np.asarray(space.top_plane_dofs() if ess is None else ess)
 
         def buf(a):
             return torch.tensor(a, dtype=torch.float64).to(device=device,
                                                            dtype=dtype)
 
-        if isinstance(space, LatticeSpace):
-            self.jz, Jz_face = float(1.0 / space.spacings[2][-1]), None
-        else:
-            self.jz, Jz_face = top_trace_geometry(
-                space, 1e-6 if dtype == torch.float32 else 1e-12)
         self.register_buffer("dn", buf(Dn[p]))
+        self.layout = self.top_idx = None
+        if isinstance(space, LatticeSpace):
+            self.jz, Jz, elems = float(1.0 / space.spacings[2][-1]), None, None
+        else:
+            elems = surface_elements(space, ess)
+            self.jz, Jz = top_trace_geometry(
+                space, 1e-6 if dtype == torch.float32 else 1e-12, elems)
+        if self.jz is not None:
+            idx = self._layers(space, ess)
+            if idx is None:
+                self.jz = None
+            elif not np.array_equal(idx, np.arange(len(idx))):
+                self.top_idx = torch.as_tensor(idx, device=device)
         if self.jz is None:
-            Dx, Dy, Dz = space.dof_dims
-            nte = space.elem_dims[0] * space.elem_dims[1]
-            # top-layer element dofs within the top p+1 planes, and their
-            # top faces within the top plane
-            top = space.elem_dofs[-nte:] - (Dz - self.p1) * Dx * Dy
-            face = top.reshape(nte, self.p1, -1)[:, p] - p * Dx * Dy
-            self.register_buffer("top_dofs", torch.as_tensor(top,
-                                                             device=device))
+            surf_of = np.full(space.n_dofs, -1, dtype=np.int64)
+            surf_of[ess] = np.arange(len(ess))
+            ed = space.elem_dofs[elems]
+            self.register_buffer("elem_dofs", torch.as_tensor(ed,
+                                                              device=device))
             self.register_buffer("fold", torch.as_tensor(
-                _fold_table(face, Dx * Dy), device=device))
+                _fold_table(surf_of[ed], len(ess)), device=device))
             self.register_buffer("Dn", buf(Dn))
-            self.register_buffer("jz_face", buf(Jz_face))
-            self.register_buffer("inv_mult_top", buf(
-                1.0 / space.node_mult[space.top_plane_dofs()]))
+            self.register_buffer("Jz", buf(Jz))       # [m, L or 1, 3]
+            self.register_buffer("inv_mult", buf(1.0 / space.node_mult[ess]))
+
+    def _layers(self, space, ess: np.ndarray) -> np.ndarray | None:
+        """Where the numbering has z-layers and ``ess`` is its last one: set
+        ``layout`` = (kind, Dz, nplane) and return each surface dof's index
+        in the layer (lpfem's ``_detect_top``); else None."""
+        if space.dof_dims is not None:
+            Dx, Dy, Dz = space.dof_dims
+            off = (Dz - 1) * Dy * Dx
+            if space.periodic[2] or np.any(ess < off):
+                return None
+            self.layout = ("struct", Dz, Dy * Dx)
+            return ess - off
+        ext = space.extruded
+        if ext is None or np.any(ess % ext.Dz != ext.Dz - 1):
+            return None
+        self.layout = ("ext", ext.Dz, ext.n2d)
+        return ess // ext.Dz
 
     def top_trace(self, x: torch.Tensor) -> torch.Tensor:
-        Dx, Dy, Dz = self.dof_dims
-        xs = x.reshape(Dz, Dy * Dx)[Dz - self.p1:]
         if self.jz is not None:
-            return self.jz * (self.dn @ xs)
-        p, p1 = self.p, self.p1
-        u = xs.reshape(-1)[self.top_dofs].view(-1, p1, p1, p1)
-        top = u[:, p]                                       # [e, y, x]
-        gx = top @ self.Dn.T
-        gy = self.Dn @ top
-        gz = torch.einsum("m,emyx->eyx", self.dn, u)
-        Jz = self.jz_face.view(-1, p1, p1, 3)
+            kind, Dz, nplane = self.layout
+            if kind == "struct":
+                w = self.jz * (self.dn @ x.view(Dz, nplane)[Dz - self.p1:])
+            else:
+                w = self.jz * (x.view(nplane, Dz)[:, Dz - self.p1:] @ self.dn)
+            return w if self.top_idx is None else w[self.top_idx]
+        p1 = self.p1
+        u = x[self.elem_dofs].view(-1, p1, p1, p1)          # [e, z, y, x]
+        gx = (u @ self.Dn.T).reshape(-1, p1 ** 3)
+        gy = (self.Dn @ u).reshape(-1, p1 ** 3)
+        gz = torch.einsum("cz,ezyx->ecyx", self.Dn, u).reshape(-1, p1 ** 3)
+        Jz = self.Jz
         w = Jz[..., 0] * gx + Jz[..., 1] * gy + Jz[..., 2] * gz
-        return _fold(w, self.fold) * self.inv_mult_top
+        return _fold(w, self.fold) * self.inv_mult
 
     forward = top_trace

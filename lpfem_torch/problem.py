@@ -3,14 +3,17 @@
 Counterpart of ``lpfem.problem.Problem`` for the configurations this package
 covers:
 
-- the generated Cartesian tanks (``periodic_tank``, ``finite_tank``), on the
-  banded Kronecker operator (:class:`~lpfem_torch.operators.
-  SeparableLattice`);
-- a mesh passed in whose generator declares an element lattice (the curved
-  half-cylinder tank of ``lpfem_torch.cylmesh``), on the element operator
-  (:class:`~lpfem_torch.operators.ElementLaplace`);
+- the generated Cartesian tanks (``periodic_tank``, ``finite_tank``), on a
+  :class:`~lpfem_torch.space.LatticeSpace` built from the configuration;
+- an MFEM mesh file (``mesh_kind="mfem"``), loaded and refined
+  ``ref_levels`` times, on the topological
+  :class:`~lpfem_torch.space.H1Space`;
+- a mesh passed in: on a :class:`~lpfem_torch.space.CurvedLatticeSpace` when
+  its generator declares an element lattice (the curved half-cylinder tank
+  of ``lpfem_torch.cylmesh``, sheared tanks), else on an ``H1Space``;
 
-with Jacobi / Chebyshev / p-multigrid preconditioning, relaxation zones, the
+each on the operator :func:`~lpfem_torch.operators.laplace_operator` picks
+for it, with Jacobi / Chebyshev / p-multigrid preconditioning, relaxation zones, the
 wave by modes, period or wavelength, and ``dtype`` float64, float32 or mixed
 (float64 state and outer residual, float32 inner solve). Anything else
 raises ``NotImplementedError`` with the reason.
@@ -26,23 +29,28 @@ import torch
 from . import resolve_device, state_dtypes
 from .analytic import AiryWave
 from .configs import Config
-from .mesh import Mesh
+from .mesh import Mesh, load_mfem
 from .multigrid import ChebyshevSmoother, PMultigrid, estimate_lmax
-from .operators import ElementLaplace, SeparableLattice
-from .space import CurvedLatticeSpace, LatticeSpace, SurfaceSpace
+from .operators import laplace_operator
+from .space import CurvedLatticeSpace, H1Space, LatticeSpace, SurfaceSpace
 from .surface import (FreeSurfaceOperator, RelaxationZones, SolveCarry,
                       SolveStats, cabs_weight, cgen_weight)
 from .timestep import rk4_run
 
-__all__ = ["Problem", "build_wave"]
+__all__ = ["Problem", "build_mesh", "build_wave"]
+
+_TANKS = ("periodic_tank", "finite_tank")
 
 
 def _check_supported(cfg: Config, mesh: Mesh | None) -> None:
-    if mesh is None and cfg.mesh_kind not in ("periodic_tank", "finite_tank"):
+    if mesh is None and cfg.mesh_kind == "gmsh":
         raise NotImplementedError(
-            f"mesh_kind={cfg.mesh_kind!r}: only the generated Cartesian tanks "
-            "and meshes with a declared element lattice are ported; general "
-            "meshes need the topological space port (ROADMAP A8)")
+            "mesh_kind='gmsh': the Gmsh parser is not ported (ROADMAP A8); "
+            "generated tanks, MFEM mesh files and meshes passed in are")
+    if mesh is None and cfg.mesh_kind not in _TANKS + ("mfem",):
+        raise ValueError(f"unknown mesh_kind {cfg.mesh_kind!r}")
+    if mesh is None and cfg.mesh_kind == "mfem" and cfg.mesh_file is None:
+        raise ValueError("mesh_kind='mfem' needs mesh_file")
     if cfg.hi_apply == "ds":
         raise NotImplementedError("hi_apply='ds': the double-single outer "
                                   "loop is not ported (the GPU runs native "
@@ -56,6 +64,16 @@ def _check_supported(cfg: Config, mesh: Mesh | None) -> None:
         raise ValueError(f"unknown wave_by {cfg.wave_by!r}")
     if cfg.precond not in ("jacobi", "chebyshev", "pmg"):
         raise ValueError(f"unknown precond {cfg.precond!r}")
+
+
+def build_mesh(cfg: Config) -> Mesh:
+    """The mesh of ``mesh_kind="mfem"``: the file, refined ``ref_levels``
+    times (``lpfem.problem.build_mesh``, ``lpfem/problem.py:28-41``; the
+    generated tanks need no mesh here)."""
+    m = load_mfem(cfg.mesh_file)
+    for _ in range(cfg.ref_levels):
+        m = m.uniform_refine()
+    return m
 
 
 def build_wave(cfg: Config, bbmin, bbmax) -> AiryWave:
@@ -88,25 +106,28 @@ class Problem:
         """``device``: where every tensor lives (no global default; a missing
         GPU raises). ``lmax``: per-level smoother lambda_max for the
         p-multigrid (parity runs inject the reference's). ``mesh``: a mesh
-        with a declared element lattice (the curved cylinder tank) instead
-        of the configured Cartesian tank."""
+        to run on instead of the configured one."""
         _check_supported(cfg, mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mixed = cfg.dtype == "mixed"
         self.dtype, op_dtype = state_dtypes(cfg.dtype)
-        if mesh is None:
+        if mesh is None and cfg.mesh_kind in _TANKS:
             self.space = LatticeSpace.from_config(cfg)
-            op_cls = SeparableLattice
         else:
-            self.space = CurvedLatticeSpace(mesh, cfg.order)
-            op_cls = ElementLaplace
+            mesh = build_mesh(cfg) if mesh is None else mesh
+            space_cls = (CurvedLatticeSpace if mesh.elem_lattice is not None
+                         else H1Space)
+            self.space = space_cls(mesh, cfg.order)
         self.surf = SurfaceSpace(self.space)
+        self.ess = torch.as_tensor(self.surf.surf_to_vol, device=self.device)
         bbmin, bbmax = self.space.bounding_box()
         self.wave = build_wave(cfg, bbmin, bbmax)
-        self.op = op_cls(self.space, op_dtype, self.device, q=cfg.quad)
-        self.op_hi = (op_cls(self.space, torch.float64, self.device,
-                             q=cfg.quad) if self.mixed else None)
+        self.op = laplace_operator(self.space, op_dtype, self.device,
+                                   q=cfg.quad)
+        self.op_hi = (laplace_operator(self.space, torch.float64,
+                                       self.device, q=cfg.quad)
+                      if self.mixed else None)
         self.dt = float(cfg.t_final_periods * self.wave.T / cfg.nsteps)
         self.t_final = float(cfg.t_final_periods * self.wave.T)
 
@@ -129,8 +150,7 @@ class Problem:
                                     lmax=lmax)
         elif cfg.precond == "chebyshev":
             diag = self.op.diag()
-            diag[torch.as_tensor(self.surf.surf_to_vol,
-                                 device=self.device)] = 1.0
+            diag[self.ess] = 1.0
             inv_diag = 1.0 / diag
             apply_c = self.op.constrained_apply_top
             lm = lmax[0] if lmax is not None else estimate_lmax(apply_c,
@@ -159,8 +179,7 @@ class Problem:
                           device=self.device)
         phi0 = torch.zeros(self.space.n_dofs, dtype=self.dtype,
                            device=self.device)
-        phi0[torch.as_tensor(self.surf.surf_to_vol, device=self.device)] = \
-            y0[self.surf.n_dofs:]
+        phi0[self.ess] = y0[self.surf.n_dofs:]
         return y0, phi0
 
     # ------------------------------------------------------------------- run

@@ -6,8 +6,8 @@ Counterpart of ``lpfem.surface.FreeSurfaceOperator`` (the reference's
     d eta / dt    = w_tilde = dphi/dz |_fs
     d phi_fs / dt = -g eta
 
-with phi solving Laplace's equation, phi = phi_fs on the free surface (the top
-z-plane) and zero-Neumann walls, plus the optional relaxation-zone penalty
+with phi solving Laplace's equation, phi = phi_fs on the free surface (the
+dofs ``surf.surf_to_vol``) and zero-Neumann walls, plus the optional relaxation-zone penalty
 forcing ``d g/dt += alpha(t) C(x)/tau (g_e - g)``
 (``Solvers/PF_linear_serial.cpp:186-257``, ``lpfem/surface.py:82-143,
 350-357``). The volume potential rides along as the CG warm start (MFEM's
@@ -15,8 +15,8 @@ persistent ``GridFunction &phi``).
 
 Two solve paths: ``op_hi`` given (``dtype="mixed"``) runs ``pcg_ir`` — float64
 outer residual on ``op_hi``, float32 inner CG on ``op``; otherwise ``pcg``
-on ``op``. ``op`` is either lattice operator. The reference's double-single
-outer loop (TPU only) is not ported.
+on ``op``. ``op`` is any operator of ``lpfem_torch.operators``. The
+reference's double-single outer loop (TPU only) is not ported.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .analytic import AiryWave
-from .operators import ElementLaplace, NodalZDerivative, SeparableLattice
+from .operators import NodalZDerivative
 from .solvers import pcg, pcg_ir
 from .space import SurfaceSpace
 
@@ -137,15 +137,13 @@ class RelaxationZones:
 
 class FreeSurfaceOperator:
     """``(t, y, aux) -> (dy/dt, aux)`` with ``y = [eta; phi_fs]`` on the
-    surface dofs (lattice order of the top plane) and ``aux`` a
+    surface dofs (in the order of ``surf``) and ``aux`` a
     :class:`SolveCarry`."""
 
-    def __init__(self, op: SeparableLattice | ElementLaplace,
-                 surf: SurfaceSpace,
+    def __init__(self, op, surf: SurfaceSpace,
                  g: float = 9.81, cg_rtol_sq: float = 1e-24,
                  cg_atol_sq: float = 0.0, cg_max_iter: int = 1000,
-                 precond_fn=None,
-                 op_hi: SeparableLattice | ElementLaplace | None = None,
+                 precond_fn=None, op_hi=None,
                  ir_max_outer: int = 4, ir_inner_rtol_sq: float = 1e-8,
                  relax: RelaxationZones | None = None):
         self.op = op
@@ -160,11 +158,13 @@ class FreeSurfaceOperator:
         self.ir_inner_rtol_sq = ir_inner_rtol_sq
         self.n_surf = surf.n_dofs
         zop = op_hi if op_hi is not None else op
-        self.zderiv = NodalZDerivative(zop.space, zop.dtype, zop.device)
+        self.ess = torch.as_tensor(surf.surf_to_vol, device=zop.device)
+        self.zderiv = NodalZDerivative(zop.space, zop.dtype, zop.device,
+                                       ess=surf.surf_to_vol)
         if precond_fn is None:
-            # Jacobi with identity on the essential plane
+            # Jacobi with identity on the essential dofs
             diag = op.diag()
-            diag[torch.as_tensor(surf.surf_to_vol, device=diag.device)] = 1.0
+            diag[self.ess] = 1.0
             inv_diag = 1.0 / diag
             precond_fn = lambda r: r * inv_diag  # noqa: E731
         self._precond = precond_fn
@@ -175,9 +175,9 @@ class FreeSurfaceOperator:
         sop = self.op_hi if self.op_hi is not None else self.op
         b = torch.zeros(sop.n_dofs, dtype=phi_warm.dtype,
                         device=phi_warm.device)
-        B, _ = sop.constrained_rhs(b, phi_fs)
+        B, _ = sop.constrained_rhs(b, phi_fs, self.ess)
         x0 = phi_warm.clone()
-        x0.view(sop.dof_dims[2], -1)[-1] = phi_fs      # the top plane
+        x0[self.ess] = phi_fs
         if self.op_hi is not None:
             res = pcg_ir(self.op_hi.constrained_apply_top,
                          self.op.constrained_apply_top, B, x0,

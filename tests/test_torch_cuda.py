@@ -1,7 +1,7 @@
 """lpfem_torch on a CUDA GPU: the hand-written kernels against their plain
-PyTorch versions, and the time loops (the ss.cpp tank, the diffraction tank)
-on the GPU against the same loops on the CPU (where every apply takes the
-plain version).
+PyTorch versions, and the time loops (the ss.cpp tank, the diffraction tank,
+the leaning tanks of the general-mesh path) on the GPU against the same loops
+on the CPU (where every apply takes the plain version).
 
 Every test here needs a GPU and skips without one. This file imports neither
 ``jax`` nor ``lpfem``, so it runs on a machine without them:
@@ -24,9 +24,13 @@ import torch
 import lpfem_torch
 from lpfem_torch.cylmesh import make_half_cylinder_tank
 from lpfem_torch.experiments.diffraction import build_problem
+from lpfem_torch.experiments.leaning_tank import leaning_tank
+from lpfem_torch.kernels import lattice_apply as klat
 from lpfem_torch.kernels import pa_apply as kpa
 from lpfem_torch.kernels import sep_apply as ksep
-from lpfem_torch.operators import ElementLaplace, SeparableLattice
+from lpfem_torch.mesh import save_mfem
+from lpfem_torch.operators import (AffineLatticeLaplace, ElementLaplace,
+                                   SeparableLattice)
 from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace, grid_lines
 
 
@@ -153,3 +157,95 @@ def test_gpu_diffraction_step_matches_cpu(cuda, dtype):
     assert float((phi_g.cpu() - phi_c).abs().max()) < 1e-12
     assert not gpu.last_solver_stats.unconverged
     assert gpu.last_solver_stats.n_solves == 4
+
+
+TANK = dict(Lx=1.0, Ly=0.1, Lz=1 / (2 * np.pi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("nx", [6, 5])
+def test_affine_kernels_match_plain_versions(cuda, nx, p, dtype, tol):
+    """B2 and B3a on a leaning periodic tank (nx = 5: an odd element count
+    across the seam, the extra parity class): against their plain versions,
+    B2 bitwise repeatable, and each call counted as a launch — a CUDA tensor
+    never reaches the plain version."""
+    space = CurvedLatticeSpace(leaning_tank(nx, 3, 3, **TANK), p)
+    op = AffineLatticeLaplace(space, dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    x = torch.randn(op.n_dofs, generator=gen, device=cuda, dtype=dtype)
+    args = (op.C6, op.w3, op.B, op.D, space.elem_dims, space.periodic)
+    for ess in (False, True):
+        before = klat.LAUNCHES
+        y = klat.lattice_affine_apply(x, *args, ess)
+        assert klat.LAUNCHES == before + 1
+        assert torch.equal(y, klat.lattice_affine_apply(x, *args, ess))
+        y_ref = klat.lattice_affine_apply_reference(x, *args, ess)
+        torch.cuda.synchronize()
+        assert float((y - y_ref).abs().max() / y_ref.abs().max()) < tol
+    u = op.gather(x)
+    before = kpa.LAUNCHES_AFFINE
+    ye = kpa.pa_apply_affine(u, op.C6, op.w3, op.B, op.D)
+    assert kpa.LAUNCHES_AFFINE == before + 1
+    ye_ref = kpa.pa_apply_affine_reference(u, op.C6, op.w3, op.B, op.D)
+    torch.cuda.synchronize()
+    assert float((ye - ye_ref).abs().max() / ye_ref.abs().max()) < tol
+
+
+@pytest.mark.cuda
+def test_affine_wrappers_raise_instead_of_falling_back(cuda):
+    space = CurvedLatticeSpace(leaning_tank(6, 2, 2, **TANK), 2)
+    op = AffineLatticeLaplace(space, torch.float32, cuda)
+    x = torch.zeros(op.n_dofs, device=cuda, dtype=torch.float64)
+    args = (op.w3, op.B, op.D, space.elem_dims, space.periodic)
+    with pytest.raises(ValueError, match="dtype and device"):
+        klat.lattice_affine_apply(x, op.C6, *args)
+    with pytest.raises(ValueError, match="dtype and device"):
+        klat.lattice_affine_apply(x.float(), op.C6.cpu(), *args)
+    with pytest.raises(ValueError, match="dofs, expected"):
+        klat.lattice_affine_apply(x.float()[:-1].contiguous(), op.C6, *args)
+    u = torch.zeros(op.C6.shape[0], 27, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="dtype and device"):
+        kpa.pa_apply_affine(u, op.C6, op.w3, op.B, op.D)
+    with pytest.raises(ValueError, match="C6 of shape"):
+        kpa.pa_apply_affine(u.float(), op.C6[:-1].contiguous(), op.w3, op.B,
+                            op.D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "mixed"])
+@pytest.mark.parametrize("path", ["A", "B"])
+def test_gpu_general_mesh_run_matches_cpu_run(cuda, path, dtype, tmp_path):
+    """Three RK4 steps of path A (leaning along z, lattice declared: B2) and
+    of path B (leaning along y, through a mesh file: B3a) on the GPU against
+    the CPU, 1e-12 (both solve to r.z <= rz0 * 1e-20, the float64 outer
+    loop's reach in mixed precision)."""
+    kw = dict(order=4, dtype=dtype, precond="pmg", cheb_degree=4,
+              cg_rtol_sq=1e-20, cg_max_iter=300, nsteps=40,
+              wave_by="wavelength", wave_lambda=0.5)
+    if path == "A":
+        mesh = leaning_tank(6, 2, 2, **TANK, lean="z")
+        cfg = lpfem_torch.preset("scaling_base", **kw)
+        counter = lambda: klat.LAUNCHES                       # noqa: E731
+    else:
+        mesh = None
+        save_mfem(leaning_tank(6, 2, 2, **TANK, lean="y", declare=False),
+                  str(tmp_path / "y.mesh"))
+        cfg = lpfem_torch.preset("scaling_base", **kw, mesh_kind="mfem",
+                                 mesh_file=str(tmp_path / "y.mesh"),
+                                 ref_levels=1)
+        counter = lambda: kpa.LAUNCHES_AFFINE                 # noqa: E731
+    cpu = lpfem_torch.Problem(cfg, device="cpu", mesh=mesh)
+    gpu = lpfem_torch.Problem(cfg, device=cuda, mesh=mesh,
+                              lmax=cpu.precond.lmax)
+    before = counter()
+    _, y_g, phi_g = gpu.run(n_steps=3)
+    assert counter() > before
+    _, y_c, phi_c = cpu.run(n_steps=3)
+    gpu.check_state(y_g, phi_g)
+    assert float((y_g.cpu() - y_c).abs().max()) < 1e-12
+    assert float((phi_g.cpu() - phi_c).abs().max()) < 1e-12
+    assert not gpu.last_solver_stats.unconverged
+    assert gpu.last_solver_stats.n_solves == 12

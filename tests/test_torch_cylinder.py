@@ -26,6 +26,7 @@ from lpfem.analytic import mccamy_fuchs_envelope as lp_mf
 from lpfem.configs import Config as LConfig
 from lpfem.cylmesh import make_half_cylinder_tank as lp_cyl
 from lpfem.multigrid import PMultigrid as LPMultigrid
+from lpfem.multigrid import _coarsen_structured_mesh
 from lpfem.operators import LaplacePA
 from lpfem.operators import NodalZDerivative as LNodalZ
 from lpfem.problem import Problem as LProblem
@@ -203,13 +204,17 @@ def test_top_trace_off_extrusion_matches_lpfem_full_derivative():
 
 def test_curved_space_guards():
     m = make_half_cylinder_tank(**SMALL)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="H1Space"):
         CurvedLatticeSpace(Mesh(m.verts, m.elems, m.corner_coords,
                                 m.bdr_quads, m.bdr_attrs), 2)
     assert CurvedLatticeSpace(m, 1).coarsen() is None       # nez = 1 is odd
+    # even dimensions: the merged polar mesh declares no lattice and is no
+    # Cartesian product, so lpfem's h-coarsening stops, and so does this
     even = make_half_cylinder_tank(**dict(SMALL, nz=2))
-    with pytest.raises(NotImplementedError, match="h-coarsening"):
-        CurvedLatticeSpace(even, 1).coarsen()
+    sp_even = CurvedLatticeSpace(even, 1)
+    assert sp_even.coarsen() is None
+    assert H1Space(_coarsen_structured_mesh(H1Space(lp_cyl(
+        **dict(SMALL, nz=2)), 1)), 1).struct is None
     bad = make_half_cylinder_tank(**SMALL)
     bad.elems = bad.elems[:, [1, 0, 3, 2, 5, 4, 7, 6]]      # mirrored in x
     with pytest.raises(ValueError, match="lattice"):

@@ -108,15 +108,16 @@ def test_problem_matches_lpfem(dtype, monkeypatch):
     np.testing.assert_array_equal(y_back, y_l)
 
 
-@pytest.mark.parametrize("override,reason", [
-    (dict(mesh_kind="gmsh", mesh_file="x.msh"), "A8"),
-    (dict(hi_apply="ds"), "double-single"),
-    (dict(apply_mode="assembled"), "assembled"),
-    (dict(mesh_kind="mfem", mesh_file="x.mesh"), "Cartesian"),
+@pytest.mark.parametrize("override,error,reason", [
+    (dict(mesh_kind="gmsh", mesh_file="x.msh"), NotImplementedError, "A8"),
+    (dict(hi_apply="ds"), NotImplementedError, "double-single"),
+    (dict(apply_mode="assembled"), NotImplementedError, "assembled"),
+    (dict(mesh_kind="mfem"), ValueError, "mesh_file"),
+    (dict(mesh_kind="tetra"), ValueError, "unknown mesh_kind"),
 ])
-def test_problem_rejects_unported_configs(override, reason):
+def test_problem_rejects_unported_configs(override, error, reason):
     cfg = lpfem_torch.preset("scaling_base", **override)
-    with pytest.raises(NotImplementedError, match=reason):
+    with pytest.raises(error, match=reason):
         Problem(cfg, device="cpu")
 
 
