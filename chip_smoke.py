@@ -6,8 +6,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Device and build: require CUDA, print the card's name and power limit
    (nvidia-smi), build the CUDA kernels from ``lpfem_torch/csrc`` (one nvcc
-   per source, all started together) and print the build time and ptxas's
-   register report.
+   per source, all started together: B1, B2, B3a / B3b, B4) and print the
+   build time and ptxas's register report.
 2. Kernels vs plain versions on the card, relative to max|y|: double
    <= 1e-13, float <= 1e-5.
    - ``sep_apply`` (B1; float and double, p = 1, 2, 4, periodic and
@@ -36,6 +36,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      times as for B3b, B2 beside the three-step route it fuses (gather +
      B3a + fold) and beside B1 on the unsheared lattice of the same size,
      and the cuSPARSE SpMV of the assembled operator at every level.
+   - ``sep_apply_ds`` (B4) on double-single pairs of random float64 values
+     (normal, and with magnitudes spread over 1e-8..1e8; p = 1, 2, 4,
+     periodic and finite x, an odd Dx, ess_top on and off, and the ss.cpp
+     fine lattice, the only level the DS outer loop runs at) against
+     ``sep_apply_ds_reference``, <= 1e-14 of max|y| and whether bit for
+     bit, and against float64 B1 on the pair's value, <= 1e-13 relative in
+     the 2-norm (float32 B1's error printed beside it); at the fine lattice
+     device and per-call time, the plain version's, the bound (bytes, and
+     the operations counted from the kernel), and float64 B1 and its
+     cuSPARSE SpMV as the comparators (no PyTorch call computes a
+     double-single apply).
 3. The ss.cpp path: ``Problem(cfg, device="cuda")`` on the reference's
    strong-scaling protocol (``scaling_base``, 2 refinements, order 4, mixed
    precision, r.z <= rz0*1e-16, maxit 300, p-multigrid, Chebyshev degree 4;
@@ -77,7 +88,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the Kronecker operator (B1) and, after 4 RK4 steps, agree with the
      generated tank's run to 1e-12.
 
-Phases 3, 4 (float64) and 5A each profile one more RK4 step with
+6. The double-single outer loop: phase 3's configuration with
+   ``hi_apply="ds"`` and phase 3's lmax (``fso._ds_op`` must be set): a cold
+   solve that must converge; one warm-up step, then 10 RK4 steps = 40
+   solves with the launch counts set to 0 just before and read just after
+   (requires sep_apply_ds launches, every solve converged, a finite state);
+   the 40-step accuracy run, whose nodal eta error must stay below 0.1 H,
+   within 1 % of phase 3's and whose eta within 1e-5 max|eta| of phase 3's.
+
+Phases 3, 4 (float64), 5A and 6 each profile one more RK4 step with
 torch.profiler, outside the timed window: device kernel time by category and
 the device's busy share. Each phase's own time is printed.
 
@@ -106,9 +125,11 @@ CYL_DOFS = 340_725
 LEAN = dict(wave_by="wavelength", wave_lambda=0.5)   # Lx / wave_m
 PATH_B_REF_LEVELS = 2          # 512 -> 32,768 hexes, 2,179,584 dofs
 PATH_C_STEPS = 4
-KERNEL_SOURCES = ("sep_apply", "pa_apply", "lattice_apply")
+KERNEL_SOURCES = ("sep_apply", "pa_apply", "lattice_apply", "sep_apply_ds")
 CHAIN = 30
 TOL = {"float32": 1e-5, "float64": 1e-13}
+DS_TOL_PLAIN = 1e-14           # B4 vs its plain version, of max|y|
+DS_TOL_F64 = 1e-13             # B4 vs float64 B1, relative 2-norm
 
 # Peak rates of one H100 SXM (NVIDIA data sheet) at the 700 W power limit:
 # HBM3 bandwidth, and the card's highest rate for each dtype (float32 on the
@@ -712,7 +733,139 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
     return heads["pa_apply_affine"], heads["lattice_affine_apply"]
 
 
-_CATEGORIES = (("B3b pa_apply_element", ("pa_element_kernel",)),
+def _ds_operations(dims, p: int, periodic_x: bool, ess_top: bool) -> int:
+    """Float32 operations of one B4 apply (``csrc/sep_apply_ds.cu``, fma
+    counted as 2), for the terms this lattice has: 15 per band term, 3 per
+    normalisation, 11 per DS addition; pass x holds 2 accumulators, y 3,
+    z 2; ess_top skips the top plane's terms in passes x and z."""
+    Dx, Dy, Dz = dims
+
+    def terms(D, per):            # valid (i, s) pairs along one line
+        return D * (2 * p + 1) - (0 if per else p * (p + 1))
+
+    plane = Dx * Dy
+    n = plane * Dz
+    top = plane if ess_top else 0
+    x_terms = terms(Dx, periodic_x) * Dy * (Dz - (1 if ess_top else 0))
+    y_terms = terms(Dy, False) * Dx * Dz
+    z_terms = (terms(Dz, False) - (p + 1 if ess_top else 0)) * plane
+    return (15 * (2 * x_terms + 3 * y_terms + 2 * z_terms)
+            + 6 * n + (3 * 3 + 11) * n + (2 * 3 + 11) * (n - top))
+
+
+def phase_sep_apply_ds(report: dict) -> dict:
+    import torch
+    from lpfem_torch.ds import SeparableDS, ds_from_f64, ds_to_f64
+    from lpfem_torch.kernels.sep_apply import sep_apply
+    from lpfem_torch.kernels.sep_apply_ds import (sep_apply_ds,
+                                                  sep_apply_ds_reference)
+    from lpfem_torch.operators import SeparableLattice
+    from lpfem_torch.space import LatticeSpace, grid_lines
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rel2(y, y_ref):
+        return float(torch.linalg.norm(y - y_ref) / torch.linalg.norm(y_ref))
+
+    def check(space, ess, kind, label):
+        """B4 on a DS pair from random float64 values (``kind`` "normal", or
+        "wide": magnitudes spread over 1e-8..1e8) against its plain version
+        (of max|y|, and bit for bit) and against float64 B1 on the pair's
+        value (relative 2-norm); float32 B1 beside it."""
+        op = SeparableLattice(space, torch.float64, "cuda")
+        op32 = SeparableLattice(space, torch.float32, "cuda")
+        dsop = SeparableDS(op)
+        shape = space.dof_dims[::-1]
+        x64 = torch.randn(shape, generator=gen, device="cuda",
+                          dtype=torch.float64)
+        if kind == "wide":
+            x64 = x64 * 10.0 ** (16.0 * torch.rand(
+                shape, generator=gen, device="cuda",
+                dtype=torch.float64) - 8.0)
+        x = ds_from_f64(x64)
+        y = sep_apply_ds(x.hi, x.lo, dsop.bands, op.periodic, ess)
+        y_ref = sep_apply_ds_reference(x.hi, x.lo, dsop.bands, op.periodic,
+                                       ess)
+        abs_err, rel = _rel_err(ds_to_f64(y), ds_to_f64(y_ref))
+        bitwise = bool(torch.equal(y.hi, y_ref.hi)
+                       and torch.equal(y.lo, y_ref.lo))
+        y64 = sep_apply(ds_to_f64(x), op.bands, op.periodic, ess)
+        rel64 = rel2(ds_to_f64(y), y64)
+        rel32 = rel2(sep_apply(x.hi, op32.bands, op.periodic, ess).double(),
+                     y64)
+        print(f"[2] sep_apply_ds {label:40s} {kind:6s} ess_top={int(ess)} "
+              f"vs plain {rel:.2e} (bitwise {bitwise}), vs float64 B1 "
+              f"{rel64:.2e} (float32 B1 {rel32:.2e})")
+        if not (rel <= DS_TOL_PLAIN and rel64 <= DS_TOL_F64):
+            raise AssertionError(f"sep_apply_ds disagrees: {label} {kind} "
+                                 f"ess_top={ess}: {rel:.3e} / {rel64:.3e}")
+        return dict(label=label, kind=kind, ess_top=ess, rel_err_plain=rel,
+                    bitwise=bitwise, rel_err_f64=rel64, rel_err_f32_b1=rel32,
+                    max_abs_err=abs_err), x, dsop
+
+    lz = 1.0 / (2 * 3.141592653589793)
+    small = [LatticeSpace((grid_lines(nx, lx), grid_lines(2, 0.1),
+                           grid_lines(3, lz)), p, (per, False, False))
+             for per, nx, lx in ((True, 6, 1.0), (False, 5, 12.0))
+             for p in (1, 2, 4)]
+    small.append(LatticeSpace((grid_lines(5, 1.0), grid_lines(2, 0.1),
+                               grid_lines(2, lz)), 1, (True, False, False)))
+    rows = []
+    for sp in small:
+        for ess in (False, True):
+            for kind in ("normal", "wide"):
+                rows.append(check(sp, ess, kind, (
+                    f"Dx={sp.dof_dims[0]} Dy={sp.dof_dims[1]} Dz="
+                    f"{sp.dof_dims[2]} p={sp.p} "
+                    f"{'periodic' if sp.periodic[0] else 'finite'}"))[0])
+
+    # the ss.cpp fine lattice, the only level the DS outer runs at
+    fine = _main_lattices()[0]
+    dims = "x".join(str(d) for d in fine.dof_dims[::-1])
+    b1 = {(r["dtype"], r["ess_top"]): r for r in report["sep_apply_times"]
+          if r["level"] == 0}
+    times = []
+    head = None
+    for ess in (True, False):
+        for kind in ("normal", "wide"):
+            row, x, dsop = check(fine, ess, kind, f"ss.cpp fine p=4 {dims}")
+            rows.append(row)
+        fn = lambda h, lo: sep_apply_ds(h, lo, dsop.bands, dsop.periodic,
+                                        ess)
+        ms = _time_chain(fn, [(x.hi, x.lo)])
+        dev = _device_ms(fn, [(x.hi, x.lo)],
+                         ("ds_pass_x", "ds_pass_y", "ds_pass_z"))
+        plain = (_time_chain(lambda h, lo: sep_apply_ds_reference(
+            h, lo, dsop.bands, dsop.periodic, ess), [(x.hi, x.lo)])
+            if ess else None)
+        n, p = fine.n_dofs, fine.p
+        # xh, xl read once, yh, yl written once, the twelve band tables
+        nbytes = 4 * (4 * n + 4 * (2 * p + 1) * sum(fine.dof_dims))
+        ops = _ds_operations(fine.dof_dims, p, fine.periodic[0], ess)
+        bound, by = _bound(nbytes, ops, "float32")
+        ref = b1[("float64", True)]
+        row = dict(p=p, dims=dims, ess_top=ess, ms=dev if dev is not None
+                   else ms, call_ms=ms, device_ms=dev, plain_ms=plain,
+                   max_abs_err=max(r["max_abs_err"] for r in rows),
+                   bound_ms=bound, bound_by=by, operations=ops, bytes=nbytes,
+                   library_ms=ref["ms"], spmv_f64_ms=ref["library_ms"])
+        times.append(row)
+        print(f"[2] time sep_apply_ds p={p} {dims} ess_top={int(ess)}: "
+              f"kernel {row['ms']:.4f} ms on the device ({ms:.4f} ms per "
+              f"call, host included), plain "
+              f"{'%.4f ms' % plain if plain else 'not timed'}, bound "
+              f"{bound:.4f} ms ({by}; {ops} operations, {nbytes} bytes); "
+              f"float64 B1 {ref['ms']:.4f} ms, float64 cuSPARSE SpMV "
+              f"{ref['library_ms']:.4f} ms")
+        if ess:
+            head = row
+    report["sep_apply_ds_checks"] = rows
+    report["sep_apply_ds_times"] = times
+    return head
+
+
+_CATEGORIES = (("B4 sep_apply_ds", ("ds_pass_x", "ds_pass_y", "ds_pass_z")),
+               ("B3b pa_apply_element", ("pa_element_kernel",)),
                ("B3a pa_apply_affine", ("pa_affine_kernel",)),
                ("B2 lattice_affine_apply", ("lattice_affine_kernel",)),
                ("B1 sep_apply", ("pass_x", "pass_y", "pass_z")),
@@ -787,19 +940,23 @@ def _sync_round_trip_us(reps: int = 200) -> float:
 
 
 def _zero_counts():
-    from lpfem_torch.kernels import lattice_apply, pa_apply, sep_apply
+    from lpfem_torch.kernels import (lattice_apply, pa_apply, sep_apply,
+                                     sep_apply_ds)
     sep_apply.LAUNCHES = 0
     pa_apply.LAUNCHES = 0
     pa_apply.LAUNCHES_AFFINE = 0
     lattice_apply.LAUNCHES = 0
+    sep_apply_ds.LAUNCHES = 0
 
 
 def _read_counts() -> dict:
-    from lpfem_torch.kernels import lattice_apply, pa_apply, sep_apply
+    from lpfem_torch.kernels import (lattice_apply, pa_apply, sep_apply,
+                                     sep_apply_ds)
     return {"sep_apply": sep_apply.LAUNCHES,
             "pa_apply_element": pa_apply.LAUNCHES,
             "pa_apply_affine": pa_apply.LAUNCHES_AFFINE,
-            "lattice_affine_apply": lattice_apply.LAUNCHES}
+            "lattice_affine_apply": lattice_apply.LAUNCHES,
+            "sep_apply_ds": sep_apply_ds.LAUNCHES}
 
 
 def phase_ss_path(report: dict) -> int:
@@ -895,7 +1052,8 @@ def phase_ss_path(report: dict) -> int:
     report["accuracy"] = dict(nsteps=ACCURACY_STEPS, eta_error_inf_nodal=err,
                               t=t, total_inner_iters=acc.last_solver_stats
                               .total_iters)
-    return launches, err
+    return dict(launches=launches, err=err, lmax=prob.precond.lmax,
+                wall=wall, eta=y[:ns].clone(), busy=prof["busy_share"])
 
 
 def phase_diffraction(report: dict) -> int:
@@ -1153,6 +1311,95 @@ def phase_general_mesh(report: dict, ss_err: float) -> dict:
     return launches
 
 
+def phase_ds_path(report: dict, ss: dict) -> int:
+    """Phase 3's protocol and accuracy run with the double-single outer
+    loop (``hi_apply="ds"``): the outer residuals on B4."""
+    import torch
+    import lpfem_torch
+
+    cfg = lpfem_torch.preset("scaling_base", **CFG, hi_apply="ds")
+    t0 = time.perf_counter()
+    prob = lpfem_torch.Problem(cfg, device="cuda", lmax=ss["lmax"])
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    if prob.fso._ds_op is None:
+        raise AssertionError("hi_apply='ds' did not engage the DS outer")
+    n, ns = prob.space.n_dofs, prob.surf.n_dofs
+    y0, phi0 = prob.initial_state()
+    _, cold = prob.fso.solve_laplace(y0[ns:], phi0)
+    print(f"[6] setup {setup:.2f} s; cold solve: {cold.iters} inner CG "
+          f"iterations (JAX reference on TPU, this outer loop: "
+          f"{EXPECTED_COLD_ITERS}), converged={cold.converged}, "
+          f"{cold.syncs} host syncs")
+    if not cold.converged:
+        raise AssertionError("cold DS solve did not converge")
+
+    prob.run(n_steps=1)                                   # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    t, y, phi = prob.run(n_steps=N_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    stats = prob.last_solver_stats
+    prob.check_state(y, phi)
+    if stats.unconverged:
+        raise AssertionError(f"a DS solve did not converge: {stats}")
+    if stats.n_solves != 4 * N_STEPS:
+        raise AssertionError(f"expected {4 * N_STEPS} solves, ran "
+                             f"{stats.n_solves}")
+    if counts["sep_apply_ds"] <= 0:
+        raise AssertionError("the DS path launched no sep_apply_ds kernel")
+    rate = n * 4 * N_STEPS / wall
+    print(f"[6] {N_STEPS} RK4 steps = {stats.n_solves} solves: wall "
+          f"{wall:.3f} s ({ss['wall']:.3f} s with the float64 outer, phase "
+          f"3), {rate:.4e} dof*solves/s, {stats.total_iters} inner CG "
+          f"iterations (max {stats.max_iters} per solve), {stats.syncs} host "
+          f"syncs, launches {counts}")
+    report["ds_path"] = dict(
+        setup_s=setup, wall_s=wall, dof_solves_per_s=rate,
+        n_solves=stats.n_solves, cold_solve_iters=cold.iters,
+        total_inner_iters=stats.total_iters, max_iters=stats.max_iters,
+        syncs=stats.syncs, launches=counts, f64_outer_wall_s=ss["wall"])
+
+    acc = lpfem_torch.Problem(
+        lpfem_torch.preset("scaling_base", **CFG, hi_apply="ds",
+                           nsteps=ACCURACY_STEPS),
+        device="cuda", lmax=ss["lmax"])
+    t_a, y_a, phi_a = acc.run()
+    acc.check_state(y_a, phi_a)
+    if acc.last_solver_stats.unconverged:
+        raise AssertionError(f"a DS solve did not converge: "
+                             f"{acc.last_solver_stats}")
+    err = acc.eta_error_inf(y_a, t_a, quad=False)
+    eta = y_a[:ns]
+    d = float((eta - ss["eta"]).abs().max())
+    amax = float(ss["eta"].abs().max())
+    print(f"[6] accuracy run, {ACCURACY_STEPS} RK4 steps over one period: "
+          f"nodal eta error inf {err:.3e} (float64 outer {ss['err']:.3e}, "
+          f"limits 0.1 H and 1 %), max|eta_ds - eta_f64| {d:.3e} (limit "
+          f"1e-5 max|eta| = {1e-5 * amax:.3e}), "
+          f"{acc.last_solver_stats.total_iters} inner CG iterations")
+    if not (abs(t_a - acc.t_final) < 1e-9 * acc.t_final
+            and err < 0.1 * cfg.H and abs(err - ss["err"]) <= 0.01 * ss["err"]
+            and d <= 1e-5 * amax):
+        raise AssertionError(f"DS accuracy run: error {err} against "
+                             f"{ss['err']}, eta difference {d}")
+    report["ds_path"].update(eta_error_inf_nodal=err, eta_max_abs_diff=d,
+                             accuracy_inner_iters=acc.last_solver_stats
+                             .total_iters)
+    del acc
+    prof = _profile_step(prob, (y, phi), t)
+    prof["busy_share_unprofiled"] = prof["device_ms"] / (1e3 * wall / N_STEPS)
+    _print_profile("[6]", prof)
+    print(f"[6] device time over the unprofiled step wall "
+          f"{prof['busy_share_unprofiled']:.3f} (float64 outer, phase 3: "
+          f"{ss['busy']:.3f} profiled)")
+    report["ds_path"]["profile"] = prof
+    return counts["sep_apply_ds"]
+
+
 def main() -> int:
     import warnings
     # torch's notes that sparse CSR is beta / unchecked (the yardsticks)
@@ -1179,9 +1426,11 @@ def main() -> int:
     sep = timed("2 sep_apply", phase_sep_apply)
     pa = timed("2 pa_apply", phase_pa_apply)
     b3a, b2 = timed("2 affine kernels", phase_affine)
-    sep_launches, ss_err = timed("3 ss.cpp path", phase_ss_path)
+    ds = timed("2 sep_apply_ds", phase_sep_apply_ds)
+    ss = timed("3 ss.cpp path", phase_ss_path)
     pa_launches = timed("4 diffraction", phase_diffraction)
-    launches = timed("5 general mesh", phase_general_mesh, ss_err)
+    launches = timed("5 general mesh", phase_general_mesh, ss["err"])
+    ds_launches = timed("6 double-single outer", phase_ds_path, ss)
     report["total_s"] = time.perf_counter() - t_start
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"total {report['total_s']:.1f} s")
@@ -1191,7 +1440,7 @@ def main() -> int:
         dict(name="sep_apply", route="cuda",
              source="lpfem_torch/csrc/sep_apply.cu",
              replaces="lpfem/kernels/sep_apply.py:230",
-             launches=sep_launches, path_c_launches=launches["C"],
+             launches=ss["launches"], path_c_launches=launches["C"],
              **{k: sep[k] for k in keys}),
         dict(name="pa_apply_element", route="cuda",
              source="lpfem_torch/csrc/pa_apply.cu",
@@ -1210,7 +1459,12 @@ def main() -> int:
              launches=launches["A"],
              three_step_device_ms=b2["three_step_device_ms"],
              b1_device_ms=b2["b1_device_ms"],
-             **{k: b2[k] for k in keys})]}
+             **{k: b2[k] for k in keys}),
+        dict(name="sep_apply_ds", route="cuda",
+             source="lpfem_torch/csrc/sep_apply_ds.cu",
+             replaces="lpfem/kernels/sep_apply_ds.py:291",
+             launches=ds_launches, spmv_f64_ms=ds["spmv_f64_ms"],
+             **{k: ds[k] for k in keys})]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

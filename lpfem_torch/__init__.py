@@ -14,23 +14,31 @@ reader can find each counterpart:
                element lattice), H1Space (topological numbering of any
                mesh), SurfaceSpace (the free surface)
     geometry   metric / Jacobian tables of the elements (NumPy, f64)
-    convert    lpfem state / smoother tables <-> this package's layout
+    convert    lpfem state (a double-single potential too) / smoother
+               tables <-> this package's layout
+    ds         double-single (two-float32) arithmetic and the double-single
+               Kronecker apply (SeparableDS)
     kernels    CUDA kernels + their plain-PyTorch versions
     operators  banded Kronecker Laplace (SeparableLattice), fused affine
                lattice Laplace (AffineLatticeLaplace), element-form Laplace
                (ElementLaplace), the rule that picks one, free-surface trace
-    solvers    PCG and mixed-precision iterative refinement (host loops)
+    solvers    PCG and mixed-precision iterative refinement, with a float64
+               or a double-single outer loop (host loops)
     multigrid  Chebyshev-Jacobi smoother and p/h-multigrid V-cycle
     surface    free-surface right-hand side, relaxation zones
     timestep   RK4 with the non-finite freeze guard and a record hook
     problem    Config (+ mesh) -> operators -> time loop
-    experiments.diffraction  the wave-cylinder diffraction study
-    experiments.leaning_tank the periodic tank meshed with sheared elements
+    experiments.diffraction    the wave-cylinder diffraction study
+    experiments.leaning_tank   the periodic tank meshed with sheared elements
+    experiments.solve_profile  per-component times of one RK4 stage
 
 Device and dtype policy: every constructor takes an explicit ``device``;
 ``dtype="mixed"`` keeps the state and the outer residual in float64 and runs
-the inner solve (operator, preconditioner) in float32. The package never
-imports ``jax`` or ``lpfem``.
+the inner solve (operator, preconditioner) in float32. With
+``hi_apply="ds"`` (Kronecker lattices only) the outer residual runs in
+double-single arithmetic instead, no float64 anywhere in the solve, and the
+volume potential is carried as a ``ds.DS`` pair; ``"auto"`` keeps float64.
+The package never imports ``jax`` or ``lpfem``.
 """
 
 import torch

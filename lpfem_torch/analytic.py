@@ -86,6 +86,12 @@ class AiryWave:
         amp = -0.5 * self.H * self.c * np.cosh(self.kh) / np.sinh(self.kh)
         return amp * np.sin(self.phase(x, y, t))
 
+    def w_vel(self, x, y, z, t=0.0):
+        """Vertical velocity dphi/dz (``Solvers/laplace_solver.cpp:79-81``)."""
+        zz = z - self.z_top + self.h
+        amp = -0.5 * self.H * self.c * self.k / np.sinh(self.kh)
+        return amp * np.sinh(self.k * zz) * np.sin(self.phase(x, y, t))
+
 
 def mccamy_fuchs_envelope(theta: np.ndarray, ka: float,
                           m_max: int = 400, tol: float = 1e-10) -> np.ndarray:

@@ -79,10 +79,11 @@ class Config:
                                          # stay well above the f32 floor
                                          # (~1e-10) — see solvers.pcg_ir
     hi_apply: str = "auto"               # dtype="mixed" outer arithmetic:
-                                         # auto = double-single (two-f32)
-                                         # when the lattice is separable,
-                                         # ds = require it, f64 = force the
-                                         # emulated-f64 outer (lpfem.ds)
+                                         # ds = double-single (two-f32,
+                                         # lpfem_torch.ds; needs a separable
+                                         # lattice), f64 = float64; auto =
+                                         # float64 (lpfem picks ds only on
+                                         # a TPU, where f64 is emulated)
     precond: str = "jacobi"              # jacobi | chebyshev | pmg
     cheb_degree: int = 3                 # smoother degree (chebyshev / pmg)
     h_coarsen_min_dofs: int = 20000      # pmg: h-coarsen below p=1 while the

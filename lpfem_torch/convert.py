@@ -12,7 +12,8 @@ meshes) the port reproduces lpfem's volume and surface numbering, so states
 pass unchanged; :func:`surface_map` gives the map in every case and
 :func:`assert_same_numbering` checks the identity. Everything is NumPy in
 and out; nothing here imports ``lpfem`` or ``jax`` — pass ``np.asarray`` of
-their arrays.
+their arrays. The volume potential ``phi`` may be a ``(hi, lo)`` pair of
+float32 arrays, lpfem's double-single carry (``lpfem.ds.DS``), in and out.
 """
 
 from __future__ import annotations
@@ -56,6 +57,14 @@ def assert_same_numbering(space_l, surf_l, space_p, surf_p) -> None:
         raise ValueError("surface numberings differ")
 
 
+def _copy_phi(phi):
+    """A copy of ``phi``: one array, or a ``(hi, lo)`` double-single pair."""
+    if isinstance(phi, tuple):
+        hi, lo = phi
+        return np.array(hi), np.array(lo)
+    return np.array(phi)
+
+
 def state_from_lpfem(y, phi, surf_to_vol, dof_dims):
     """(y, phi) of ``lpfem`` -> (y, phi) in this package's surface order."""
     perm = surface_permutation(surf_to_vol, dof_dims)
@@ -64,7 +73,7 @@ def state_from_lpfem(y, phi, surf_to_vol, dof_dims):
     out = np.empty_like(y)
     out[perm] = y[:ns]
     out[ns + perm] = y[ns:]
-    return out, np.asarray(phi).copy()
+    return out, _copy_phi(phi)
 
 
 def state_to_lpfem(y, phi, surf_to_vol, dof_dims):
@@ -72,7 +81,7 @@ def state_to_lpfem(y, phi, surf_to_vol, dof_dims):
     perm = surface_permutation(surf_to_vol, dof_dims)
     y = np.asarray(y)
     ns = len(perm)
-    return np.concatenate([y[perm], y[ns + perm]]), np.asarray(phi).copy()
+    return np.concatenate([y[perm], y[ns + perm]]), _copy_phi(phi)
 
 
 def smoother_lmax(pmg) -> list[float]:

@@ -26,7 +26,8 @@ free-surface dofs ``space.top_plane_dofs()``), ``constrained_rhs``, ``diag``
 and ``assemble_scipy``.
 
 :class:`NodalZDerivative` is the free-surface trace of MFEM's nodal
-``GetDerivative(1, 2, w)``.
+``GetDerivative(1, 2, w)``, :func:`nodal_z_derivative` the same derivative
+at every dof.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .ds import DS
 from .elements import basis_1d
 from .geometry import (affine_c6, geometric_factors, grad_interp_matrix,
                        surface_elements, top_trace_geometry)
@@ -49,7 +51,8 @@ from .mesh import HEX_VERTS
 from .space import LatticeSpace
 
 __all__ = ["SeparableLattice", "AffineLatticeLaplace", "ElementLaplace",
-           "NodalZDerivative", "laplace_operator", "separable_spacings"]
+           "NodalZDerivative", "nodal_z_derivative", "laplace_operator",
+           "separable_spacings"]
 
 BAND_NAMES = ("Kx", "Mx", "Ky", "My", "Kz", "Mz")
 
@@ -574,14 +577,31 @@ class NodalZDerivative(nn.Module):
         self.layout = ("ext", ext.Dz, ext.n2d)
         return ess // ext.Dz
 
-    def top_trace(self, x: torch.Tensor) -> torch.Tensor:
+    def top_trace(self, x: torch.Tensor | DS) -> torch.Tensor:
+        """The trace at the surface dofs, in the buffers' dtype. A
+        double-single ``x`` (the potential of the ``hi_apply="ds"`` solve,
+        which runs on lattices only) is recombined on the top ``p+1``
+        planes or column levels alone (``lpfem/operators.py:1024-1034``),
+        never on the full volume."""
         if self.jz is not None:
             kind, Dz, nplane = self.layout
+            p1 = self.p1
             if kind == "struct":
-                w = self.jz * (self.dn @ x.view(Dz, nplane)[Dz - self.p1:])
+                def top(v):
+                    return v.view(Dz, nplane)[Dz - p1:]
             else:
-                w = self.jz * (x.view(nplane, Dz)[:, Dz - self.p1:] @ self.dn)
+                def top(v):
+                    return v.view(nplane, Dz)[:, Dz - p1:]
+            if isinstance(x, DS):
+                xs = top(x.hi).to(self.dn.dtype) + top(x.lo).to(self.dn.dtype)
+            else:
+                xs = top(x)
+            w = self.jz * (self.dn @ xs if kind == "struct" else xs @ self.dn)
             return w if self.top_idx is None else w[self.top_idx]
+        if isinstance(x, DS):
+            raise ValueError("a double-single potential needs the layered "
+                             "trace (the double-single solve runs on "
+                             "lattices only)")
         p1 = self.p1
         u = x[self.elem_dofs].view(-1, p1, p1, p1)          # [e, z, y, x]
         gx = (u @ self.Dn.T).reshape(-1, p1 ** 3)
@@ -592,3 +612,36 @@ class NodalZDerivative(nn.Module):
         return _fold(w, self.fold) * self.inv_mult
 
     forward = top_trace
+
+
+def nodal_z_derivative(space, x: torch.Tensor) -> torch.Tensor:
+    """MFEM's nodal ``GetDerivative(1, 2, w)`` at every dof of ``space``
+    (lpfem's ``NodalZDerivative.__call__``, ``lpfem/operators.py:1051-1073``;
+    the metric of ``Problem.w_error_inf``), in ``x``'s dtype and device.
+
+    On a :class:`LatticeSpace` (boxes) the element's z-derivative at a node
+    is ``(1/hz) sum_m Dn[l, m] x[ez*p + m]`` along the node's z-line, and
+    the elements sharing the node across x or y give the same value, so
+    MFEM's average over the sharing elements is the mean over its one or
+    two z-neighbours: each z-element's column derivative is added into its
+    planes and divided by the planes' count. Any other space takes the
+    general path of :class:`NodalZDerivative` with every dof as the
+    target: every element's nodal derivative, folded and divided by the
+    node multiplicity."""
+    if not isinstance(space, LatticeSpace):
+        return NodalZDerivative(space, x.dtype, x.device,
+                                ess=np.arange(space.n_dofs))(x)
+    p = space.p
+    Dx, Dy, Dz = space.dof_dims
+    hz = space.spacings[2]
+    rows = (np.arange(len(hz))[:, None] * p + np.arange(p + 1)).ravel()
+    u = x.view(Dz, Dy * Dx)
+    idx = torch.as_tensor(rows, device=x.device)
+    Dn = torch.tensor(basis_1d(p).Dn, dtype=x.dtype, device=x.device)
+    jz = torch.tensor(1.0 / hz, dtype=x.dtype, device=x.device)
+    we = jz[:, None, None] * torch.einsum(
+        "lm,emk->elk", Dn, u[idx].view(len(hz), p + 1, -1))
+    w = torch.zeros_like(u).index_add_(0, idx, we.reshape(len(rows), -1))
+    count = torch.tensor(np.bincount(rows, minlength=Dz), dtype=x.dtype,
+                         device=x.device)
+    return (w / count[:, None]).reshape(-1)

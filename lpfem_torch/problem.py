@@ -15,8 +15,11 @@ covers:
 each on the operator :func:`~lpfem_torch.operators.laplace_operator` picks
 for it, with Jacobi / Chebyshev / p-multigrid preconditioning, relaxation zones, the
 wave by modes, period or wavelength, and ``dtype`` float64, float32 or mixed
-(float64 state and outer residual, float32 inner solve). Anything else
-raises ``NotImplementedError`` with the reason.
+(float64 state and outer residual, float32 inner solve; with
+``hi_apply="ds"`` on a Kronecker lattice the outer loop in double-single
+arithmetic and the volume potential carried as a
+:class:`~lpfem_torch.ds.DS` pair). Anything else raises
+``NotImplementedError`` with the reason.
 """
 
 from __future__ import annotations
@@ -29,13 +32,14 @@ import torch
 from . import resolve_device, state_dtypes
 from .analytic import AiryWave
 from .configs import Config
+from .ds import DS, ds_from_f64, ds_to_f64
 from .mesh import Mesh, load_mfem
 from .multigrid import ChebyshevSmoother, PMultigrid, estimate_lmax
-from .operators import laplace_operator
+from .operators import laplace_operator, nodal_z_derivative
 from .space import CurvedLatticeSpace, H1Space, LatticeSpace, SurfaceSpace
 from .surface import (FreeSurfaceOperator, RelaxationZones, SolveCarry,
                       SolveStats, cabs_weight, cgen_weight)
-from .timestep import rk4_run
+from .timestep import rk4_run, rk4_step
 
 __all__ = ["Problem", "build_mesh", "build_wave"]
 
@@ -51,12 +55,13 @@ def _check_supported(cfg: Config, mesh: Mesh | None) -> None:
         raise ValueError(f"unknown mesh_kind {cfg.mesh_kind!r}")
     if mesh is None and cfg.mesh_kind == "mfem" and cfg.mesh_file is None:
         raise ValueError("mesh_kind='mfem' needs mesh_file")
-    if cfg.hi_apply == "ds":
-        raise NotImplementedError("hi_apply='ds': the double-single outer "
-                                  "loop is not ported (the GPU runs native "
-                                  "float64)")
-    if cfg.hi_apply not in ("auto", "f64"):
+    if cfg.hi_apply not in ("auto", "ds", "f64"):
         raise ValueError(f"unknown hi_apply {cfg.hi_apply!r}")
+    if cfg.hi_apply == "ds" and cfg.dtype != "mixed":
+        # before any assembly; the operator half of lpfem's rule is the
+        # FreeSurfaceOperator's
+        raise ValueError("hi_apply='ds' needs dtype='mixed' on a separable "
+                         "lattice with the top-plane essential set")
     if cfg.apply_mode == "assembled":
         raise NotImplementedError("apply_mode='assembled': the assembled "
                                   "SpMV operator is not ported yet")
@@ -163,7 +168,8 @@ class Problem:
             cg_atol_sq=cfg.cg_atol_sq, cg_max_iter=cfg.cg_max_iter,
             precond_fn=precond_fn, op_hi=self.op_hi,
             ir_max_outer=cfg.ir_max_outer,
-            ir_inner_rtol_sq=cfg.ir_inner_rtol_sq, relax=self.relax)
+            ir_inner_rtol_sq=cfg.ir_inner_rtol_sq, relax=self.relax,
+            hi_apply=cfg.hi_apply)
         self.last_solver_stats = None
         self._last_ok = None
 
@@ -182,16 +188,42 @@ class Problem:
         phi0[self.ess] = y0[self.surf.n_dofs:]
         return y0, phi0
 
+    def zero_state(self):
+        """(y, phi) of zeros (``lpfem/problem.py:172-175``)."""
+        return (torch.zeros(2 * self.surf.n_dofs, dtype=self.dtype,
+                            device=self.device),
+                torch.zeros(self.space.n_dofs, dtype=self.dtype,
+                            device=self.device))
+
+    def step_fn(self):
+        """One RK4 step ``(t, y, phi) -> (y, phi)`` (``lpfem/problem.py:
+        178-185``); on the double-single path the returned ``phi`` is a DS
+        pair whatever ``phi`` was."""
+        fso, dt = self.fso, self.dt
+
+        def step(t, y, phi):
+            y, aux = rk4_step(fso, t, dt, y, SolveCarry(phi, SolveStats()))
+            return y, aux.phi
+
+        return step
+
     # ------------------------------------------------------------------- run
     def run(self, n_steps: int | None = None, t0: float = 0.0, state=None,
             record=None):
         """RK4 loop. Returns (t, y, phi). ``record(t, y, aux)`` is called
         after every step (lpfem's per-step record hook). After the run
         ``last_solver_stats`` holds the solver telemetry; an unconverged
-        stage emits a ``RuntimeWarning`` (MFEM's "No convergence!")."""
+        stage emits a ``RuntimeWarning`` (MFEM's "No convergence!").
+
+        On the double-single path the carry ``phi`` is a DS pair: a float
+        ``phi`` (the initial state) is split once here, and a DS pair passed
+        back in ``state`` (a resumed run) goes through unchanged, bit for
+        bit (``lpfem/problem.py:208-213``)."""
         if n_steps is None:
             n_steps = self.cfg.nsteps
         y0, phi0 = state if state is not None else self.initial_state(t0)
+        if self.fso._ds_op is not None and not isinstance(phi0, DS):
+            phi0 = ds_from_f64(phi0.to(torch.float64))
         aux0 = SolveCarry(phi0, SolveStats())
         (t, y, aux), ok = rk4_run(self.fso, y0, aux0, t0, self.dt, n_steps,
                                   record=record)
@@ -212,6 +244,8 @@ class Problem:
             raise FloatingPointError(
                 "time integration diverged: a non-finite RK4 stage was "
                 "detected and the run stopped at the last finite step")
+        if isinstance(phi, DS):
+            phi = ds_to_f64(phi)
         for name, v in (("free-surface state [eta; phi_fs]", y),
                         ("volume potential", phi)):
             if not bool(torch.isfinite(v).all()):
@@ -234,3 +268,17 @@ class Problem:
                 eta, lambda x, yy, z: w.eta(x, yy, t))
         ex = self.surf.project(lambda x, yy, z: w.eta(x, yy, t))
         return float(np.max(np.abs(eta - ex)))
+
+    def w_error_inf(self, phi, t: float) -> float:
+        """Max-norm error of the nodal vertical velocity dphi/dz
+        (:func:`~lpfem_torch.operators.nodal_z_derivative`, MFEM's
+        ``GetDerivative``) against the Airy wave's at time t, over every
+        dof (``lpfem/problem.py:287-295``); a DS ``phi`` is recombined to
+        float64 first, as lpfem's."""
+        if isinstance(phi, DS):
+            phi = ds_to_f64(phi)
+        w = nodal_z_derivative(self.space, phi).detach().to(
+            "cpu", torch.float64).numpy()
+        wv = self.wave
+        ex = self.space.project(lambda x, y, z: wv.w_vel(x, y, z, t))
+        return float(np.max(np.abs(w - ex)))

@@ -1,9 +1,10 @@
 """Preconditioned CG and mixed-precision iterative refinement.
 
-Counterpart of ``lpfem.solvers.pcg`` / ``pcg_ir`` with every rule kept:
-MFEM's threshold ``r.z <= max(rz0 * rtol_sq, atol_sq)``, the zero-denominator
-guards on ``alpha`` and ``beta``, the ``grow_limit`` breakdown guard, and the
-outer true-residual loop with ``max_outer`` / ``inner_rtol_sq``.
+Counterpart of ``lpfem.solvers.pcg`` / ``pcg_ir`` / ``pcg_ir_ds`` with every
+rule kept: MFEM's threshold ``r.z <= max(rz0 * rtol_sq, atol_sq)``, the
+zero-denominator guards on ``alpha`` and ``beta``, the ``grow_limit``
+breakdown guard, and the outer true-residual loop (float64 or double-single)
+with ``max_outer`` / ``inner_rtol_sq``.
 
 The reference's ``lax.while_loop`` becomes a host loop: the iteration's
 arithmetic stays on the device, and the exit test reads one boolean back,
@@ -17,11 +18,13 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["CGResult", "pcg", "pcg_ir"]
+from .ds import DS, ds_add_f32, ds_sub
+
+__all__ = ["CGResult", "pcg", "pcg_ir", "pcg_ir_ds"]
 
 
 class CGResult(NamedTuple):
-    x: torch.Tensor
+    x: torch.Tensor | DS     # a DS pair from pcg_ir_ds
     iters: int
     rz: torch.Tensor     # final preconditioned residual measure (r.z)
     rz0: torch.Tensor
@@ -113,6 +116,44 @@ def pcg_ir(apply_hi: Callable, apply_lo: Callable, b: torch.Tensor,
         x = x + inner.x.to(b.dtype)
         r = b - apply_hi(x)
         rr = _dot(r, r)
+        it += inner.iters
+        syncs += inner.syncs
+    return CGResult(x=x, iters=it, rz=rr, rz0=rr0, syncs=syncs)
+
+
+def pcg_ir_ds(apply_ds: Callable, apply_lo: Callable, b: DS, x0: DS,
+              precond_lo: Callable = lambda r: r,
+              rtol_sq: float = 1e-24, atol_sq: float = 0.0,
+              max_outer: int = 4, inner_rtol_sq: float = 1e-8,
+              inner_max_iter: int = 1000) -> CGResult:
+    """:func:`pcg_ir` with the whole outer loop in double-single arithmetic
+    (``lpfem/solvers.py:158-210``): ``b``/``x0`` are
+    :class:`~lpfem_torch.ds.DS` pairs, ``apply_ds`` maps DS to DS
+    (``SeparableDS``), the residual ``r = b - A x`` and the update
+    ``x += e`` are error-free float32 transforms, and the inner float32 CG
+    solves for ``r.hi``. Convergence is tested on the float32
+    ``||r.hi||^2`` against ``max(rr0 * f32(rtol_sq), f32(atol_sq))``, in
+    float32 as lpfem does. ``x`` comes back as a DS pair; ``rz``/``rz0`` are
+    the outer float32 ``||r.hi||^2``."""
+    r = ds_sub(b, apply_ds(x0))
+    rr0 = _dot(r.hi, r.hi)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=rr0.device)
+
+    threshold = torch.maximum(rr0 * f32(rtol_sq), f32(atol_sq))
+    x, rr = x0, rr0
+    it = 0
+    syncs = 0
+    for _ in range(max_outer):
+        syncs += 1
+        if not bool(rr > threshold):
+            break
+        inner = pcg(apply_lo, r.hi, None, precond_fn=precond_lo,
+                    rtol_sq=inner_rtol_sq, max_iter=inner_max_iter)
+        x = ds_add_f32(x, inner.x)
+        r = ds_sub(b, apply_ds(x))
+        rr = _dot(r.hi, r.hi)
         it += inner.iters
         syncs += inner.syncs
     return CGResult(x=x, iters=it, rz=rr, rz0=rr0, syncs=syncs)

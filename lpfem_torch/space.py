@@ -3,10 +3,10 @@
 Counterpart of ``lpfem.space``. Three volume spaces share one interface
 (``p``, ``n_dofs``, ``elem_dofs``, ``dof_dims`` / ``elem_dims`` (None without
 a lattice), ``periodic``, ``extruded``, ``top_plane_dofs()``, ``node_coords``,
-``node_mult``, ``with_order(p)``, ``coarsen()``, ``geometry_lattice()``,
-``bounding_box()``). On a lattice the dof layout is ``ix + Dx*(iy + Dy*iz)``
-on the global GLL lattice and the element order lattice-major
-``ex + nex*(ey + ney*ez)``:
+``node_mult``, ``project(fn)``, ``with_order(p)``, ``coarsen()``,
+``geometry_lattice()``, ``bounding_box()``). On a lattice the dof layout is
+``ix + Dx*(iy + Dy*iz)`` on the global GLL lattice and the element order
+lattice-major ``ex + nex*(ey + ney*ez)``:
 
 - :class:`LatticeSpace` serves the generated Cartesian tanks of lpfem
   (``make_wave_tank`` / ``make_wave_tank_finite`` after ``ref_levels``
@@ -44,6 +44,16 @@ __all__ = ["grid_lines", "LatticeSpace", "CurvedLatticeSpace", "H1Space",
            "build_quad_dofs"]
 
 
+class _NodalProjection:
+    """``project`` for any space with ``node_coords``."""
+
+    def project(self, fn) -> np.ndarray:
+        """Nodal interpolation of ``fn(x, y, z)`` (MFEM
+        ``ProjectCoefficient``; ``lpfem/space.py:614-617``)."""
+        X = self.node_coords
+        return np.asarray(fn(X[:, 0], X[:, 1], X[:, 2]), dtype=np.float64)
+
+
 def grid_lines(n: int, L: float, ref_levels: int = 0) -> np.ndarray:
     """Element boundaries of ``n`` equal cells on [0, L] after
     ``ref_levels`` bisections. Midpoints are formed as ``0.5 a + 0.5 b``,
@@ -57,7 +67,7 @@ def grid_lines(n: int, L: float, ref_levels: int = 0) -> np.ndarray:
     return g
 
 
-class LatticeSpace:
+class LatticeSpace(_NodalProjection):
     """Order-``p`` H1 dof lattice on the tensor grid ``lines = (xs, ys, zs)``.
 
     Attributes: ``elem_dims (nex, ney, nez)``, ``dof_dims (Dx, Dy, Dz)``,
@@ -146,7 +156,7 @@ def _top_plane_dofs(dof_dims) -> np.ndarray:
 _LEX_OF_VERT = np.array([0, 1, 3, 2, 4, 5, 7, 6])
 
 
-class CurvedLatticeSpace:
+class CurvedLatticeSpace(_NodalProjection):
     """Order-``p`` H1 dof lattice over a generator-declared element lattice.
 
     ``mesh.elem_lattice [ne, 3]`` / ``mesh.lattice_dims (nex, ney, nez)``
@@ -528,7 +538,7 @@ def _detect_structured_mesh(mesh: Mesh):
     return tuple(dims), np.argsort(lin, kind="stable")
 
 
-class H1Space:
+class H1Space(_NodalProjection):
     """H1 Lagrange space of order ``p`` on a hex :class:`Mesh`
     (``lpfem.space.H1Space``, same numbering).
 
@@ -921,7 +931,7 @@ class H1Space:
         return self.mesh.bounding_box()
 
 
-class SurfaceSpace:
+class SurfaceSpace(_NodalProjection):
     """The free surface of a volume space, with surface dof ``s`` at volume
     dof ``surf_to_vol[s]`` and ``elem_dofs [n_elems, (p+1)^2]`` its quad
     elements (for :meth:`max_error_quad`).
@@ -980,11 +990,6 @@ class SurfaceSpace:
         if np.any(s2v < 0) or not np.all(s2v[self.elem_dofs] == vol_face_dofs):
             raise ValueError("inconsistent surface-to-volume dof map")
         self.surf_to_vol = s2v
-
-    def project(self, fn) -> np.ndarray:
-        """Nodal interpolation of ``fn(x, y, z)``."""
-        X = self.node_coords
-        return np.asarray(fn(X[:, 0], X[:, 1], X[:, 2]), dtype=np.float64)
 
     def max_error_quad(self, vals, fn, q: int | None = None) -> float:
         """Max-norm error over the element integration points of an

@@ -13,10 +13,13 @@ forcing ``d g/dt += alpha(t) C(x)/tau (g_e - g)``
 350-357``). The volume potential rides along as the CG warm start (MFEM's
 persistent ``GridFunction &phi``).
 
-Two solve paths: ``op_hi`` given (``dtype="mixed"``) runs ``pcg_ir`` — float64
-outer residual on ``op_hi``, float32 inner CG on ``op``; otherwise ``pcg``
-on ``op``. ``op`` is any operator of ``lpfem_torch.operators``. The
-reference's double-single outer loop (TPU only) is not ported.
+Three solve paths: ``op_hi`` given (``dtype="mixed"``) runs ``pcg_ir`` —
+float64 outer residual on ``op_hi``, float32 inner CG on ``op`` — or, with
+``hi_apply="ds"`` on a :class:`~lpfem_torch.operators.SeparableLattice`,
+``pcg_ir_ds``: the outer loop in double-single arithmetic on
+:class:`~lpfem_torch.ds.SeparableDS` (kernel B4 on the GPU), the volume
+potential carried as a DS pair; otherwise ``pcg`` on ``op``. ``op`` is any
+operator of ``lpfem_torch.operators``.
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ import numpy as np
 import torch
 
 from .analytic import AiryWave
-from .operators import NodalZDerivative
-from .solvers import pcg, pcg_ir
+from .ds import DS, SeparableDS, ds_from_f32, ds_from_f64
+from .operators import NodalZDerivative, SeparableLattice
+from .solvers import pcg, pcg_ir, pcg_ir_ds
 from .space import SurfaceSpace
 
 __all__ = ["cgen_weight", "cabs_weight", "RelaxationZones",
@@ -64,10 +68,15 @@ class SolveStats:
 
 
 class SolveCarry(NamedTuple):
-    """RK4 aux carry with telemetry: volume-potential warm start plus the
-    aggregated solver stats."""
-    phi: torch.Tensor
+    """RK4 aux carry with telemetry: volume-potential warm start (a DS pair
+    on the double-single path) plus the aggregated solver stats."""
+    phi: torch.Tensor | DS
     stats: SolveStats
+
+
+def _as_ds(x: torch.Tensor) -> DS:
+    return (ds_from_f64(x) if x.dtype == torch.float64
+            else ds_from_f32(x.to(torch.float32)))
 
 
 def cgen_weight(x: np.ndarray, xg0: float, xg1: float) -> np.ndarray:
@@ -145,7 +154,15 @@ class FreeSurfaceOperator:
                  cg_atol_sq: float = 0.0, cg_max_iter: int = 1000,
                  precond_fn=None, op_hi=None,
                  ir_max_outer: int = 4, ir_inner_rtol_sq: float = 1e-8,
-                 relax: RelaxationZones | None = None):
+                 relax: RelaxationZones | None = None,
+                 hi_apply: str = "auto"):
+        """``hi_apply`` picks the outer arithmetic of the mixed solve by
+        lpfem's rule (``lpfem/surface.py:201-235``): ``"ds"`` requires it
+        double-single and raises unless ``op_hi`` is a ``SeparableLattice``
+        with the top-plane essential set; ``"f64"`` forces float64;
+        ``"auto"`` picks double-single only on a TPU, where float64 is
+        emulated, so here it always keeps the float64 outer, as lpfem does
+        off a TPU."""
         self.op = op
         self.op_hi = op_hi
         self.surf = surf
@@ -168,10 +185,22 @@ class FreeSurfaceOperator:
             inv_diag = 1.0 / diag
             precond_fn = lambda r: r * inv_diag  # noqa: E731
         self._precond = precond_fn
+        if hi_apply not in ("auto", "ds", "f64"):
+            raise ValueError(f"unknown hi_apply {hi_apply!r}")
+        self._ds_op = None
+        if hi_apply == "ds":
+            if not (isinstance(op_hi, SeparableLattice) and np.array_equal(
+                    np.sort(surf.surf_to_vol), op_hi.space.top_plane_dofs())):
+                raise ValueError("hi_apply='ds' needs dtype='mixed' on a "
+                                 "separable lattice with the top-plane "
+                                 "essential set")
+            self._ds_op = SeparableDS(op_hi)
 
     def solve_laplace(self, phi_fs: torch.Tensor, phi_warm: torch.Tensor):
         """Dirichlet Laplace solve, phi = phi_fs on the free surface
         (``Solvers/PF_linear_periodic.cpp:71-92``). Returns (phi, info)."""
+        if self._ds_op is not None:
+            return self._solve_laplace_ds(phi_fs, phi_warm)
         sop = self.op_hi if self.op_hi is not None else self.op
         b = torch.zeros(sop.n_dofs, dtype=phi_warm.dtype,
                         device=phi_warm.device)
@@ -194,12 +223,42 @@ class FreeSurfaceOperator:
                       max_iter=self.cg_max_iter)
         return res.x, self._info(res)
 
+    def _solve_laplace_ds(self, phi_fs: torch.Tensor, phi_warm):
+        """The double-single solve (``lpfem/surface.py:282-319``): the
+        eliminated right-hand side ``B = -A x_bc`` through the unconstrained
+        DS apply with ``B[ess] = phi_fs`` in both streams, the warm start
+        (a DS pair, or a float64 / float32 tensor on a cold start) with its
+        surface values set, and ``pcg_ir_ds`` over the constrained DS
+        apply. Returns a DS ``phi``."""
+        ess, dsop = self.ess, self._ds_op
+        vals = _as_ds(phi_fs)
+        zero = torch.zeros(self.op_hi.n_dofs, dtype=torch.float32,
+                           device=phi_fs.device)
+        y = dsop.apply(DS(zero.index_put((ess,), vals.hi),
+                          zero.index_put((ess,), vals.lo)))
+        B = DS((-y.hi).index_put_((ess,), vals.hi),
+               (-y.lo).index_put_((ess,), vals.lo))
+        w = phi_warm if isinstance(phi_warm, DS) else _as_ds(phi_warm)
+        x0 = DS(w.hi.index_put((ess,), vals.hi),
+                w.lo.index_put((ess,), vals.lo))
+        res = pcg_ir_ds(dsop.constrained_apply_top,
+                        self.op.constrained_apply_top, B, x0,
+                        precond_lo=self._precond,
+                        rtol_sq=self.cg_rtol_sq, atol_sq=self.cg_atol_sq,
+                        max_outer=self.ir_max_outer,
+                        inner_rtol_sq=self.ir_inner_rtol_sq,
+                        inner_max_iter=self.cg_max_iter)
+        return res.x, self._info(res)
+
     def _info(self, res) -> SolveInfo:
-        """Verdict under the MFEM threshold the solve ran with (a max_iter,
-        breakdown or NaN exit reports converged == False)."""
-        rz, rz0 = torch.stack([res.rz, res.rz0]).tolist()   # one sync
-        threshold = max(rz0 * self.cg_rtol_sq, self.cg_atol_sq)
-        return SolveInfo(iters=int(res.iters), converged=rz <= threshold,
+        """Verdict under the MFEM threshold the solve ran with, in the
+        residual's dtype (float32 on the double-single path, as lpfem's);
+        a max_iter, breakdown or NaN exit reports converged == False."""
+        ok = res.rz <= torch.clamp_min(res.rz0 * self.cg_rtol_sq,
+                                       self.cg_atol_sq)
+        rz, rz0, conv = torch.stack([res.rz, res.rz0,
+                                     ok.to(res.rz.dtype)]).tolist()  # 1 sync
+        return SolveInfo(iters=int(res.iters), converged=bool(conv),
                          rz=rz, rz0=rz0, syncs=res.syncs + 1)
 
     def __call__(self, t, y: torch.Tensor, aux: SolveCarry):

@@ -11,6 +11,8 @@ Every test here needs a GPU and skips without one. This file imports neither
 Tolerances: kernel vs plain relative to max|y| — float64 1e-13, float32
 1e-5 (the float tolerance of ``tests/test_lattice_kernel.py:62``); the
 kernel sums in the plain version's order but with fused multiply-adds.
+The double-single kernel (B4) uses no contracted operation: bit for bit
+against its plain version, 1e-13 (2-norm) against the float64 kernel.
 GPU vs CPU trajectory: 1e-12 absolute (values are O(1e-3)), the bound the
 port holds against the JAX reference; the float32 inner solves may sum dots
 in another order, which moves their exits by at most one iteration per
@@ -23,11 +25,13 @@ import torch
 
 import lpfem_torch
 from lpfem_torch.cylmesh import make_half_cylinder_tank
+from lpfem_torch.ds import DS, SeparableDS, ds_from_f64, ds_to_f64
 from lpfem_torch.experiments.diffraction import build_problem
 from lpfem_torch.experiments.leaning_tank import leaning_tank
 from lpfem_torch.kernels import lattice_apply as klat
 from lpfem_torch.kernels import pa_apply as kpa
 from lpfem_torch.kernels import sep_apply as ksep
+from lpfem_torch.kernels import sep_apply_ds as kds
 from lpfem_torch.mesh import save_mfem
 from lpfem_torch.operators import (AffineLatticeLaplace, ElementLaplace,
                                    SeparableLattice)
@@ -247,5 +251,62 @@ def test_gpu_general_mesh_run_matches_cpu_run(cuda, path, dtype, tmp_path):
     gpu.check_state(y_g, phi_g)
     assert float((y_g.cpu() - y_c).abs().max()) < 1e-12
     assert float((phi_g.cpu() - phi_c).abs().max()) < 1e-12
+    assert not gpu.last_solver_stats.unconverged
+    assert gpu.last_solver_stats.n_solves == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,periodic", [(2, True), (4, False)])
+def test_ds_kernel_matches_plain_version_and_float64(cuda, p, periodic):
+    op = SeparableLattice(_space(periodic, p, nx=5), torch.float64, cuda)
+    dsop = SeparableDS(op)
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    x = ds_from_f64(torch.randn(op.dof_dims[::-1], generator=gen,
+                                device=cuda, dtype=torch.float64))
+    for ess in (False, True):
+        before = kds.LAUNCHES
+        y = kds.sep_apply_ds(x.hi, x.lo, dsop.bands, op.periodic, ess)
+        assert kds.LAUNCHES == before + 1
+        y_ref = kds.sep_apply_ds_reference(x.hi, x.lo, dsop.bands,
+                                           op.periodic, ess)
+        torch.cuda.synchronize()
+        assert torch.equal(y.hi, y_ref.hi) and torch.equal(y.lo, y_ref.lo)
+        y64 = ksep.sep_apply(ds_to_f64(x), op.bands, op.periodic, ess)
+        rel = float(torch.linalg.norm(ds_to_f64(y) - y64)
+                    / torch.linalg.norm(y64))
+        assert rel < 1e-13, (ess, rel)
+
+
+@pytest.mark.cuda
+def test_ds_kernel_wrapper_raises_instead_of_falling_back(cuda):
+    dsop = SeparableDS(SeparableLattice(_space(True, 2), torch.float64,
+                                        cuda))
+    x = torch.zeros(dsop.dof_dims[::-1], device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        kds.sep_apply_ds(x, x, dsop.bands, dsop.periodic)
+    cpu_bands = tuple(DS(b.hi.cpu(), b.lo.cpu()) for b in dsop.bands)
+    with pytest.raises(ValueError, match="device"):
+        kds.sep_apply_ds(x.float(), x.float(), cpu_bands, dsop.periodic)
+
+
+@pytest.mark.cuda
+def test_gpu_ds_run_matches_cpu_run(cuda):
+    """Three RK4 steps with the double-single outer loop on the GPU (B4)
+    against the CPU (its plain version), 1e-12, both solved to
+    r.z <= rz0 * 1e-20."""
+    cfg = lpfem_torch.preset("scaling_base", nx=4, ny=2, nz=8, order=4,
+                             precond="pmg", cg_rtol_sq=1e-20, dtype="mixed",
+                             hi_apply="ds")
+    cpu = lpfem_torch.Problem(cfg, device="cpu")
+    gpu = lpfem_torch.Problem(cfg, device=cuda, lmax=cpu.precond.lmax)
+    before = kds.LAUNCHES
+    _, y_g, phi_g = gpu.run(n_steps=3)
+    assert kds.LAUNCHES > before
+    _, y_c, phi_c = cpu.run(n_steps=3)
+    gpu.check_state(y_g, phi_g)
+    assert isinstance(phi_g, DS)
+    assert float((y_g.cpu() - y_c).abs().max()) < 1e-12
+    assert float((ds_to_f64(phi_g).cpu() - ds_to_f64(phi_c)).abs().max()) \
+        < 1e-12
     assert not gpu.last_solver_stats.unconverged
     assert gpu.last_solver_stats.n_solves == 12

@@ -110,7 +110,7 @@ def test_problem_matches_lpfem(dtype, monkeypatch):
 
 @pytest.mark.parametrize("override,error,reason", [
     (dict(mesh_kind="gmsh", mesh_file="x.msh"), NotImplementedError, "A8"),
-    (dict(hi_apply="ds"), NotImplementedError, "double-single"),
+    (dict(hi_apply="ds", dtype="float64"), ValueError, "hi_apply='ds' needs"),
     (dict(apply_mode="assembled"), NotImplementedError, "assembled"),
     (dict(mesh_kind="mfem"), ValueError, "mesh_file"),
     (dict(mesh_kind="tetra"), ValueError, "unknown mesh_kind"),
@@ -185,7 +185,9 @@ def test_preconditioners_reach_the_same_trajectory():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, lpfem_torch, lpfem_torch.convert, "
-            "lpfem_torch.kernels._build, lpfem_torch.kernels.sep_apply; "
+            "lpfem_torch.kernels._build, lpfem_torch.kernels.sep_apply, "
+            "lpfem_torch.ds, lpfem_torch.kernels.sep_apply_ds, "
+            "lpfem_torch.experiments.solve_profile; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lpfem' "
             "or m.startswith('lpfem.')]; print(bad); sys.exit(1 if bad else 0)")
