@@ -7,7 +7,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. Device and build: require CUDA, print the card's name and power limit
    (nvidia-smi), build the CUDA kernels from ``lpfem_torch/csrc`` (one nvcc
    per source, all started together: B1, B2, B3a / B3b, B4) and print the
-   build time and ptxas's register report.
+   build time and ptxas's report (registers, spills) per kernel.
 2. Kernels vs plain versions on the card, relative to max|y|: double
    <= 1e-13, float <= 1e-5.
    - ``sep_apply`` (B1; float and double, p = 1, 2, 4, periodic and
@@ -27,15 +27,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (gather + kernel + scatter), of the plain version, and of the cuSPARSE
      SpMV of the assembled operator.
    - ``pa_apply_affine`` (B3a) and ``lattice_affine_apply`` (B2) on sheared
-     tanks (float and double; p = 1, 2, 4; periodic x with an even and an
-     odd element count and non-periodic x; odd ney, nez; ess_top on and
-     off; random symmetric positive definite ``C6`` and the real one) against
-     their plain versions; B2 also against ``ElementLaplace`` with the full
-     metric on the same mesh, and twice on one input for bitwise equality.
-     Then the three p-multigrid lattices of path A (32,768 leaning hexes):
-     times as for B3b, B2 beside the three-step route it fuses (gather +
-     B3a + fold) and beside B1 on the unsheared lattice of the same size,
-     and the cuSPARSE SpMV of the assembled operator at every level.
+     tanks (float and double; p = 1, 2, 3, 4 with q = p+1, the orders the
+     kernels compile fixed, and q = p+2 and p+1 = 6, the general
+     instantiation; periodic x with an even and an odd element count and
+     non-periodic x; odd ney, nez; ess_top on and off; random symmetric
+     positive definite ``C6`` and the real one) against their plain
+     versions; B2 also against ``ElementLaplace`` with the full metric on
+     the same mesh, and twice on one input for bitwise equality. Then the
+     three p-multigrid lattices of path A (32,768 leaning hexes): times as
+     for B3b, the device activities per call (torch.profiler over the
+     timed calls: B2 at most two kernels, B3a one, neither a memset or
+     copy; and each kernel's mean time per launch), B2 beside the
+     three-step route it fuses (gather + B3a + fold) and beside B1 on the
+     unsheared lattice of the same size, and the cuSPARSE SpMV of the
+     assembled operator at every level, with B2's ratio to it.
    - ``sep_apply_ds`` (B4) on double-single pairs of random float64 values
      (normal, and with magnitudes spread over 1e-8..1e8; p = 1, 2, 4,
      periodic and finite x, an odd Dx, ess_top on and off, and the ss.cpp
@@ -84,6 +89,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      is the affine element kernel (B3a) inside gather / fold; one period in
      40 steps; requires B3a launches and nodal eta error < 0.1 H. Prints the
      host set-up seconds.
+   Paths A and B print their B2 / B3a calls per RK4 step by element order
+   p (the wrappers' ``LAUNCHES_BY_P`` / ``LAUNCHES_AFFINE_BY_P``).
    - C: the unsheared tank written and loaded the same way must come out on
      the Kronecker operator (B1) and, after 4 RK4 steps, agree with the
      generated tank's run to 1e-12.
@@ -96,7 +103,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the 40-step accuracy run, whose nodal eta error must stay below 0.1 H,
    within 1 % of phase 3's and whose eta within 1e-5 max|eta| of phase 3's.
 
-Phases 3, 4 (float64), 5A and 6 each profile one more RK4 step with
+Phases 3, 4 (float64), 5A, 5B and 6 each profile one more RK4 step with
 torch.profiler, outside the timed window: device kernel time by category and
 the device's busy share. Each phase's own time is printed.
 
@@ -128,6 +135,7 @@ PATH_C_STEPS = 4
 KERNEL_SOURCES = ("sep_apply", "pa_apply", "lattice_apply", "sep_apply_ds")
 CHAIN = 30
 TOL = {"float32": 1e-5, "float64": 1e-13}
+SMALL_ORDERS = ((1, 2), (2, 3), (3, 4), (4, 5), (2, 4), (5, 6))   # (p, q)
 DS_TOL_PLAIN = 1e-14           # B4 vs its plain version, of max|y|
 DS_TOL_F64 = 1e-13             # B4 vs float64 B1, relative 2-norm
 
@@ -166,23 +174,63 @@ def _time_chain(fn, args_list, reps=5) -> float:
     return statistics.median(per)
 
 
-def _device_ms(fn, args_list, kernel_names) -> float | None:
-    """Device time per call (ms) of the CUDA kernels whose names contain one
-    of ``kernel_names`` (None: of every device activity, memsets and copies
-    included), from torch.profiler over CHAIN calls; None when the profiler
-    records no device time."""
+def _profile_calls(fn, args_list) -> list[tuple[str, int, float]]:
+    """(name, count, device us) of every device activity (kernels, memsets,
+    copies) over CHAIN calls, call i taking ``args_list[i % len]``: from
+    torch.profiler's ``key_averages``, after a warm-up call. The window
+    opens with a ~1 ms spin kernel (left out of the result): without it a
+    window of 30 short calls once recorded no event at all; with it the
+    profiler still loses ~3 launches a window (see :func:`_per_call`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn(*args_list[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2_000_000)
         for i in range(CHAIN):
             fn(*args_list[i % len(args_list)])
         torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0.0)
-             for e in prof.key_averages()
-             if kernel_names is None or any(k in e.key for k in kernel_names))
+    return [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) > 0
+            and "spin_kernel" not in e.key]
+
+
+def _device_ms(fn, args_list, kernel_names,
+               acts: list | None = None) -> float | None:
+    """Device time per call (ms) of the CUDA kernels whose names contain one
+    of ``kernel_names`` (None: of every device activity, memsets and copies
+    included), from :func:`_profile_calls` (or its result ``acts``); None
+    when the profiler records no device time."""
+    if acts is None:
+        acts = _profile_calls(fn, args_list)
+    us = sum(t for k, _, t in acts
+             if kernel_names is None or any(n in k for n in kernel_names))
     return us / 1e3 / CHAIN if us > 0 else None
+
+
+def _short(kernel: str) -> str:
+    """A kernel's name without its return type, namespace and arguments."""
+    import re
+    m = re.search(r"(\w+<[^()]*>|\w+)\(", kernel)
+    return m.group(1) if m else kernel
+
+
+def _per_call(acts) -> dict:
+    """Kernels, memsets and copies per call in :func:`_profile_calls`'s
+    result, device ms per call of each kernel, and ``launch_ms``: the sum
+    over the kernels of each one's mean device ms per recorded launch (each
+    runs once per call), which the events the profiler loses do not bias
+    (it records 27-29 of 30 launches of a short kernel)."""
+    def moves(k):
+        return "memset" in k.lower() or "memcpy" in k.lower()
+    kernels = {k: t / 1e3 / CHAIN for k, _, t in acts if not moves(k)}
+    return dict(kernels=kernels,
+                launch_ms=sum(t / 1e3 / c for k, c, t in acts
+                              if not moves(k) and c),
+                kernels_per_call=sum(c for k, c, _ in acts if not moves(k))
+                / CHAIN,
+                memsets=sum(c for k, c, _ in acts if "memset" in k.lower()),
+                copies=sum(c for k, c, _ in acts if "memcpy" in k.lower()))
 
 
 def _rel_err(y, y_ref) -> tuple[float, float]:
@@ -253,10 +301,37 @@ def phase_device_and_build(report: dict) -> None:
     report["build_s"] = secs
     print(f"[1] built and loaded {', '.join(KERNEL_SOURCES)} in {secs:.2f} s "
           f"({_build.BUILD_DIR})")
+    report["ptxas"] = {}
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[1] ptxas {name}: {line.strip()}")
+        for kernel, regs, spills in _ptxas_kernels(text):
+            print(f"[1] ptxas {name}: {kernel}: {regs}; {spills}")
+            report["ptxas"][kernel] = f"{regs}; {spills}"
+
+
+def _ptxas_kernels(text: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers, spills) per entry function of nvcc's ``-Xptxas
+    -v`` report, the names demangled by c++filt where the machine has it."""
+    import re
+    import shutil
+    rows, name, spills = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and name is not None:
+            regs = line.split(":", 1)[-1].strip()
+            rows.append([name, regs, spills])
+            name = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r[0] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    return [tuple(r) for r in rows]
 
 
 def _main_lattices(ref_levels: int = CFG["ref_levels"]):
@@ -592,14 +667,16 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
               leaning_tank(5, 3, 3, 1.0, 0.1, lz)),
              ("finite 5x3x3", shear_x(finite, 2, 0.5 * (12.0 / 5) / (lz / 3)))]
     for name, mesh in small:
-        for p in (1, 2, 4):
+        # the orders compiled fixed (q = p+1), and the general instantiation
+        # (q = p+2; p+1 = 6: an element over two warps)
+        for p, q in SMALL_ORDERS:
             space = CurvedLatticeSpace(mesh, p)
             for dtype in (torch.float32, torch.float64):
                 dt = str(dtype)[6:]
-                op = AffineLatticeLaplace(space, dtype, "cuda")
-                full = ElementLaplace(space, dtype, "cuda")   # full metric
+                op = AffineLatticeLaplace(space, dtype, "cuda", q=q)
+                full = ElementLaplace(space, dtype, "cuda", q=q)  # full metric
                 ne = op.C6.shape[0]
-                label = f"{name} p={p}"
+                label = f"{name} p={p} q={q}"
                 check_b3a(op, op.C6, label + " real C6")
                 check_b3a(op, _random_spd6(37, gen, dtype),
                           label + " ne=37 random C6")
@@ -638,14 +715,26 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
             sets = [(u.clone(),) for _ in range(n_sets)]
             b3a = lambda a: pa_apply_affine(a, op.C6, op.w3, op.B, op.D)
             ms = _time_chain(b3a, sets)
-            dev = _device_ms(b3a, sets, ("pa_affine_kernel",))
+            acts = _profile_calls(b3a, sets)
+            dev = _device_ms(b3a, sets, ("pa_affine_kernel",), acts)
+            act = _per_call(acts)
+            print(f"[2] pa_apply_affine p={p} {dt} on the device: "
+                  f"{act['kernels_per_call']:.2f} kernels per call recorded "
+                  f"({act['launch_ms']:.4f} ms per launch), "
+                  f"{act['memsets']} memsets, {act['copies']} copies")
+            if (len(act["kernels"]) > 1 or act["kernels_per_call"] > 1
+                    or act["memsets"] or act["copies"]):
+                raise AssertionError(f"B3a calls ran {act}")
             plain_ms = _time_chain(lambda a: pa_apply_affine_reference(
                 a, op.C6, op.w3, op.B, op.D), sets[:1])
             bound, by = _bound(size * (2 * ne * L + tables), flops, dt)
             row = dict(p=p, ne=ne, dtype=dt, ms=dev if dev is not None else ms,
                        call_ms=ms, device_ms=dev, plain_ms=plain_ms,
                        max_abs_err=abs_err, bound_ms=bound, bound_by=by,
-                       library_ms=None, flops=flops)
+                       library_ms=None, flops=flops,
+                       launch_ms=act["launch_ms"],
+                       kernels_per_call_recorded=act["kernels_per_call"],
+                       launches_per_call=len(act["kernels"]))
             times["pa_apply_affine"].append(row)
             print(f"[2] time pa_apply_affine p={p} ne={ne} {dt}: kernel "
                   f"{row['ms']:.4f} ms on the device ({ms:.4f} ms per call, "
@@ -676,7 +765,22 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
                 b2 = lambda v: lattice_affine_apply(v, op.C6, op.w3, op.B,
                                                     op.D, dims, per, ess)
                 ms = _time_chain(b2, sets)
-                dev = _device_ms(b2, sets, None)
+                acts = _profile_calls(b2, sets)
+                dev = _device_ms(b2, sets, None, acts)
+                act = _per_call(acts)
+                split = ", ".join(f"{_short(k)} {v:.4f} ms"
+                                  for k, v in act["kernels"].items())
+                print(f"[2] lattice_affine_apply p={p} {dt} "
+                      f"ess_top={int(ess)} on the device: "
+                      f"{act['kernels_per_call']:.2f} kernels per call "
+                      f"recorded ({split}; {act['launch_ms']:.4f} ms per "
+                      f"launch of each), {act['memsets']} memsets, "
+                      f"{act['copies']} copies")
+                if (not 1 <= len(act["kernels"]) <= 2
+                        or act["kernels_per_call"] > 2
+                        or act["memsets"] or act["copies"]):
+                    raise AssertionError(f"B2 calls ran {act} (at most "
+                                         "two kernels, no memset or copy)")
                 plain_ms = _time_chain(
                     lambda v: lattice_affine_apply_reference(
                         v, op.C6, op.w3, op.B, op.D, dims, per, ess),
@@ -700,7 +804,12 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
                            three_step_device_ms=three_dev, b1_call_ms=b1_ms,
                            b1_device_ms=b1_dev, max_abs_err=abs_err,
                            bound_ms=bound, bound_by=by, library_ms=None,
-                           flops=flops)
+                           flops=flops,
+                           kernel_ms={_short(k): v for k, v in
+                                      act["kernels"].items()},
+                           launch_ms=act["launch_ms"],
+                           kernels_per_call_recorded=act["kernels_per_call"],
+                           launches_per_call=len(act["kernels"]))
                 if ess:
                     # cuSPARSE yardstick: SpMV of the assembled operator
                     # (without the top-plane identity)
@@ -709,7 +818,14 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
                     if not rel <= TOL[dt]:
                         raise AssertionError(f"CSR SpMV disagrees: {rel:.3e}")
                     row["library_ms"] = _time_chain(lambda v: A @ v, sets)
+                    row["library_device_ms"] = _device_ms(
+                        lambda v: A @ v, sets, None)
                     row["library_nnz"] = int(A.values().numel())
+                    lib_dev = row["library_device_ms"] or row["library_ms"]
+                    row["ratio_to_spmv"] = row["ms"] / lib_dev
+                    print(f"[2] B2 / cuSPARSE SpMV at p={p} {dt}: "
+                          f"{row['ms']:.4f} / {lib_dev:.4f} ms on the device "
+                          f"= {row['ratio_to_spmv']:.3f}")
                     del A
                 times["lattice_affine_apply"].append(row)
                 lib = (f", cuSPARSE SpMV {row['library_ms']:.4f} ms "
@@ -867,7 +983,8 @@ def phase_sep_apply_ds(report: dict) -> dict:
 _CATEGORIES = (("B4 sep_apply_ds", ("ds_pass_x", "ds_pass_y", "ds_pass_z")),
                ("B3b pa_apply_element", ("pa_element_kernel",)),
                ("B3a pa_apply_affine", ("pa_affine_kernel",)),
-               ("B2 lattice_affine_apply", ("lattice_affine_kernel",)),
+               ("B2 lattice_affine_apply", ("lattice_affine_kernel",
+                                            "lattice_affine_fold")),
                ("B1 sep_apply", ("pass_x", "pass_y", "pass_z")),
                ("matmul", ("gemm", "gemv", "Gemm", "Gemv", "cutlass",
                            "dot_kernel", "splitKreduce")),
@@ -945,7 +1062,9 @@ def _zero_counts():
     sep_apply.LAUNCHES = 0
     pa_apply.LAUNCHES = 0
     pa_apply.LAUNCHES_AFFINE = 0
+    pa_apply.LAUNCHES_AFFINE_BY_P.clear()
     lattice_apply.LAUNCHES = 0
+    lattice_apply.LAUNCHES_BY_P.clear()
     sep_apply_ds.LAUNCHES = 0
 
 
@@ -956,7 +1075,11 @@ def _read_counts() -> dict:
             "pa_apply_element": pa_apply.LAUNCHES,
             "pa_apply_affine": pa_apply.LAUNCHES_AFFINE,
             "lattice_affine_apply": lattice_apply.LAUNCHES,
-            "sep_apply_ds": sep_apply_ds.LAUNCHES}
+            "sep_apply_ds": sep_apply_ds.LAUNCHES,
+            "pa_apply_affine_by_p": dict(sorted(
+                pa_apply.LAUNCHES_AFFINE_BY_P.items())),
+            "lattice_affine_apply_by_p": dict(sorted(
+                lattice_apply.LAUNCHES_BY_P.items()))}
 
 
 def phase_ss_path(report: dict) -> int:
@@ -1172,7 +1295,10 @@ def _run_period(tag, prob, cfg, kernel, what, report_key, report,
     if not (abs(t - prob.t_final) < 1e-9 * prob.t_final
             and err < 0.1 * cfg.H):
         raise AssertionError(f"eta error {err} at t={t} fails 0.1 H")
-    report[report_key] = dict(
+    by_p = {p: c / cfg.nsteps
+            for p, c in counts.get(f"{kernel}_by_p", {}).items()}
+    print(f"{tag} {kernel} calls per RK4 step by order p: {by_p}")
+    report[report_key] = dict(launches_per_step_by_p=by_p,
         dofs=n, surface_dofs=ns, wall_s=wall, n_solves=stats.n_solves,
         cold_solve_iters=cold.iters, total_inner_iters=stats.total_iters,
         max_iters=stats.max_iters, syncs=stats.syncs, launches=counts,
@@ -1263,7 +1389,8 @@ def phase_general_mesh(report: dict, ss_err: float) -> dict:
             raise AssertionError("path B should run the affine element "
                                  "operator on every level")
     _, launches["B"] = _run_period(
-        "[5B]", prob, cfg, "pa_apply_affine", "path B", "path_b", report)
+        "[5B]", prob, cfg, "pa_apply_affine", "path B", "path_b", report,
+        profile=True)
     report["path_b"]["setup_s"] = setup
     del prob
     torch.cuda.empty_cache()
@@ -1452,11 +1579,14 @@ def main() -> int:
         dict(name="pa_apply_affine", route="cuda",
              source="lpfem_torch/csrc/pa_apply.cu",
              replaces="lpfem/kernels/pa_apply.py:73",
-             launches=launches["B"], **{k: b3a[k] for k in keys}),
+             launches=launches["B"],
+             launches_per_call=b3a["launches_per_call"], redesigned=True,
+             **{k: b3a[k] for k in keys}),
         dict(name="lattice_affine_apply", route="cuda",
              source="lpfem_torch/csrc/lattice_apply.cu",
              replaces="lpfem/kernels/lattice_apply.py:238",
              launches=launches["A"],
+             launches_per_call=b2["launches_per_call"], redesigned=True,
              three_step_device_ms=b2["three_step_device_ms"],
              b1_device_ms=b2["b1_device_ms"],
              **{k: b2[k] for k in keys}),

@@ -1,14 +1,13 @@
-// The sum-factorised element body that pa_apply.cu (B3a, B3b) and
-// lattice_apply.cu (B2) share: for the elements of one block,
+// The sum-factorised element body of B3b (pa_apply.cu, pa_element_kernel):
+// for the elements of one block,
 //
 //     ye = Jr2^T ( G o (Jr2 u) ),   Jr2 = [B(x)B(x)D; B(x)D(x)B; D(x)B(x)B]
 //
 // with u [(p+1)^3] in shared memory (z, y, x; x fastest), B and D [q, p+1]
-// the 1D basis values and derivatives at the Gauss points, and the metric G
-// either full (kAffine = false: 6 values per Gauss point, component-major
-// [ne, 6Q], components xx, xy, xz, yy, yz, zz) or affine (kAffine = true:
-// G[e, k] = w3[k] C6[e], six constants per element and the Gauss-weight
-// products w3 [Q]).
+// the 1D basis values and derivatives at the Gauss points, and the full
+// metric G: 6 values per Gauss point, component-major [ne, 6Q], components
+// xx, xy, xz, yy, yz, zz. (The affine kernels B2 and B3a run
+// affine_body.cuh.)
 //
 // Three 1D contractions forward (x, y, z), the metric at each point, three
 // back; every intermediate stays in shared memory; one thread per output
@@ -61,27 +60,25 @@ inline int block_threads(const Dims& d) {
 }
 
 // Values of type T a block keeps in shared memory.
-inline size_t smem_values(const Dims& d, bool affine) {
-  return (size_t)(2 * d.q * d.p1 + (affine ? d.Q : 0) + d.epb * d.per_e);
+inline size_t smem_values(const Dims& d) {
+  return (size_t)(2 * d.q * d.p1 + d.epb * d.per_e);
 }
 
 template <typename T>
 struct Smem {
   T *sB, *sD;            // [q][p1]
-  T *sW;                 // [Q] Gauss-weight products (affine metric only)
   T *su;                 // [epb][L]
   T *a0, *a1;            // [epb][na]
   T *b0, *b1, *b2;       // [epb][nb]
   T *hx, *hy, *hz;       // [epb][Q]
 };
 
-template <typename T, bool kAffine>
+template <typename T>
 __device__ inline Smem<T> carve(T* sm, const Dims& d) {
   Smem<T> s;
   s.sB = sm;
   s.sD = s.sB + d.q * d.p1;
-  s.sW = s.sD + d.q * d.p1;
-  s.su = s.sW + (kAffine ? d.Q : 0);
+  s.su = s.sD + d.q * d.p1;
   s.a0 = s.su + d.epb * d.L;     // B in x       | back: D_x part
   s.a1 = s.a0 + d.epb * d.na;    // D in x       | back: B_x part
   s.b0 = s.a1 + d.epb * d.na;    // B_y B_x      | back: B_z^T hx
@@ -93,19 +90,15 @@ __device__ inline Smem<T> carve(T* sm, const Dims& d) {
   return s;
 }
 
-// Copies B, D (and w3) into shared memory; the caller synchronises.
-template <typename T, bool kAffine>
+// Copies B and D into shared memory; the caller synchronises.
+template <typename T>
 __device__ inline void load_tables(const Smem<T>& s, const Dims& d,
                                    const T* __restrict__ bmat,
-                                   const T* __restrict__ dmat,
-                                   const T* __restrict__ w3) {
+                                   const T* __restrict__ dmat) {
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int i = tid; i < d.q * d.p1; i += nt) {
     s.sB[i] = bmat[i];
     s.sD[i] = dmat[i];
-  }
-  if constexpr (kAffine) {
-    for (int i = tid; i < d.Q; i += nt) s.sW[i] = w3[i];
   }
 }
 
@@ -113,7 +106,7 @@ __device__ inline void load_tables(const Smem<T>& s, const Dims& d,
 // the last contraction in s.a0, s.a1 (synchronised on return).
 // elem_id(el) is the global id of the block's el-th element, whose metric
 // is read, or -1 where the block has none (its h is zero).
-template <typename T, bool kAffine, typename ElemId>
+template <typename T, typename ElemId>
 __device__ inline void element_stages(const Smem<T>& s, const Dims& d,
                                       const T* __restrict__ metric,
                                       const ElemId& elem_id) {
@@ -174,25 +167,12 @@ __device__ inline void element_stages(const Smem<T>& s, const Dims& d,
         gy += bv * c1[z * q * q];
         gz += dv * c0[z * q * q];
       }
-      T gxx, gxy, gxz, gyy, gyz, gzz;
-      if constexpr (kAffine) {
-        const T* C = metric + e * 6;
-        gxx = C[0]; gxy = C[1]; gxz = C[2];
-        gyy = C[3]; gyz = C[4]; gzz = C[5];
-      } else {
-        const T* G = metric + e * 6 * Q + k;
-        gxx = G[0]; gxy = G[Q]; gxz = G[2 * Q];
-        gyy = G[3 * Q]; gyz = G[4 * Q]; gzz = G[5 * Q];
-      }
+      const T* G = metric + e * 6 * Q + k;
+      const T gxx = G[0], gxy = G[Q], gxz = G[2 * Q];
+      const T gyy = G[3 * Q], gyz = G[4 * Q], gzz = G[5 * Q];
       h0 = gxx * gx + gxy * gy + gxz * gz;
       h1 = gxy * gx + gyy * gy + gyz * gz;
       h2 = gxz * gx + gyz * gy + gzz * gz;
-      if constexpr (kAffine) {
-        const T w = s.sW[k];
-        h0 *= w;
-        h1 *= w;
-        h2 *= w;
-      }
     }
     s.hx[i] = h0;
     s.hy[i] = h1;

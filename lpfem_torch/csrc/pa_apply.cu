@@ -2,15 +2,14 @@
 //
 //     ye[e] = Jr2^T ( G[e] o (Jr2 u[e]) )
 //
-// Replaces two Pallas TPU kernels of lpfem/kernels/pa_apply.py with one
-// body (the metric is a template flag of it, element_body.cuh):
+// Replaces two Pallas TPU kernels of lpfem/kernels/pa_apply.py:
 //
 // - pa_apply_element_kernel (B3b), the full metric: G6 holds the symmetric
 //   3x3 metric w|J|J^-1J^-T at the q^3 Gauss points in component-major layout
-//   [ne, 6Q] with components (xx, xy, xz, yy, yz, zz);
+//   [ne, 6Q] with components (xx, xy, xz, yy, yz, zz); body element_body.cuh;
 // - pa_apply_affine_kernel (B3a), affine elements: G[e, k] = w3[k] C6[e] with
 //   six constants per element, C6 [ne, 6], and the Gauss-weight products
-//   w3 [Q].
+//   w3 [Q]; body affine_body.cuh.
 //
 // u[e] holds the element's (p+1)^3 dof values (z, y, x; x fastest), and
 // Jr2 = [B(x)B(x)D; B(x)D(x)B; D(x)B(x)B] is the reference-gradient
@@ -20,10 +19,10 @@
 // The TPU kernels form Jr2 densely and run two MXU matmuls per 256-element
 // block ([256, L] x [L, 3Q]). Here the same function is sum-factorised, as
 // MFEM's PA kernels are: three 1D contractions per direction forward (x, y,
-// z), the metric at each point, three back, every intermediate in shared
-// memory. At p = 4 that is 11,125 multiply-adds per element instead of the
-// dense form's 93,750, and the only device-memory traffic is u, the metric
-// and ye (B and D are a few hundred bytes).
+// z), the metric at each point, three back. At p = 4 that is 11,125
+// multiply-adds per element instead of the dense form's 93,750, and the only
+// device-memory traffic is u, the metric and ye (B and D are a few hundred
+// bytes).
 //
 // What bounds it on an H100. B3b: bytes. At p = 4 on the 4,224-element
 // cylinder tank an f32 apply must move u 2.11 MB + G6 12.67 MB + ye 2.11 MB =
@@ -32,10 +31,19 @@
 // largest stream: at p = 4 an element moves 250 values and does 11,125
 // multiply-adds, 1.0 kB against 22 kFLOP in f32, which puts the two bounds
 // within a tenth of each other (32,768 elements: 10.0 us of bytes, 10.9 us
-// of flops), operations narrowly ahead. Design against that: the metric is
-// read once, coalesced (the threads of an element read consecutive points of
-// one component; the affine constants are a broadcast); u and ye are read and
-// written once, coalesced; nothing else leaves shared memory.
+// of flops), operations narrowly ahead. In f64 the CUDA cores' 34 TFLOP/s
+// make the operations 21.4 us, twice the bound counted at the tensor cores'
+// 67 TFLOP/s, which an exact CUDA-core kernel cannot reach.
+//
+// Design against that. B3b: the metric is read once, coalesced (the threads
+// of an element read consecutive points of one component); one thread per
+// point of each stage, stages separated by __syncthreads. B3a is latency-
+// bound in that layout (six block barriers per apply, every intermediate in
+// shared memory), so it runs affine_body.cuh instead: orders fixed at
+// compile time (p = 1..4 with q = p+1, a general instantiation for the rest
+// of 2 <= p+1 <= 8, 1 <= q <= 8), one thread per (x, y) column with z in
+// registers, elements packed inside a warp with __syncwarp only; u and ye
+// are read and written once, coalesced, C6[e] is a broadcast.
 //
 // Exact in its dtype: plain fused multiply-adds in float or double, no
 // tensor cores. The sums run in another order than the plain PyTorch versions
@@ -50,6 +58,7 @@
 
 #include <cuda_runtime.h>
 
+#include "affine_body.cuh"
 #include "element_body.cuh"
 
 namespace {
@@ -66,26 +75,26 @@ struct Consecutive {
   }
 };
 
-template <typename T, bool kAffine>
-__device__ inline void pa_body(const T* __restrict__ u,
-                               const T* __restrict__ metric,
-                               const T* __restrict__ w3,
-                               const T* __restrict__ bmat,
-                               const T* __restrict__ dmat, T* __restrict__ y,
-                               int ne, int p1, int q) {
+// B3b: the block's elements through element_body.cuh. Four blocks of 256
+// threads per SM cap the registers at 64 a thread.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 4)
+pa_element_kernel(const T* __restrict__ u, const T* __restrict__ g6,
+                  const T* __restrict__ bmat, const T* __restrict__ dmat,
+                  T* __restrict__ y, int ne, int p1, int q) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Dims d = make_dims(p1, q);
-  const Smem<T> s = carve<T, kAffine>(reinterpret_cast<T*>(smem_raw), d);
+  const Smem<T> s = carve<T>(reinterpret_cast<T*>(smem_raw), d);
   const Consecutive elem{(long long)blockIdx.x * d.epb, ne};
   const int tid = threadIdx.x, nt = blockDim.x;
 
-  load_tables<T, kAffine>(s, d, bmat, dmat, w3);
+  load_tables<T>(s, d, bmat, dmat);
   for (int i = tid; i < d.epb * d.L; i += nt) {
     s.su[i] = elem(i / d.L) >= 0 ? u[elem.e0 * d.L + i] : T(0);
   }
   __syncthreads();
 
-  element_stages<T, kAffine>(s, d, metric, elem);
+  element_stages<T>(s, d, g6, elem);
 
   for (int i = tid; i < d.epb * d.L; i += nt) {
     if (elem(i / d.L) < 0) continue;
@@ -93,49 +102,73 @@ __device__ inline void pa_body(const T* __restrict__ u,
   }
 }
 
-// One kernel name per metric, so that a profile tells B3b from B3a. Four
-// blocks of 256 threads per SM cap the registers at 64 a thread.
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads, 4)
-pa_element_kernel(const T* __restrict__ u, const T* __restrict__ g6,
-                  const T* __restrict__ bmat, const T* __restrict__ dmat,
-                  T* __restrict__ y, int ne, int p1, int q) {
-  pa_body<T, false>(u, g6, nullptr, bmat, dmat, y, ne, p1, q);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+// B3a: u[e] rows in, ye[e] rows out, on the affine body (kernel name kept,
+// so that a profile tells B3a from B3b).
+template <typename T, int P1, int Q>
+__global__ void __launch_bounds__(affine::kThreads)
 pa_affine_kernel(const T* __restrict__ u, const T* __restrict__ c6,
                  const T* __restrict__ w3, const T* __restrict__ bmat,
                  const T* __restrict__ dmat, T* __restrict__ y, int ne,
                  int p1, int q) {
-  pa_body<T, true>(u, c6, w3, bmat, dmat, y, ne, p1, q);
+  const int L = p1 * p1 * p1;
+  affine::apply_elements<T, P1, Q>(p1, q, ne, c6, w3, bmat, dmat,
+                                   affine::RowsIn<T>{u, L},
+                                   affine::RowsOut<T>{y, L});
 }
 
-template <typename T, bool kAffine>
-int launch(const void* u, const void* metric, const void* w3,
-           const void* bmat, const void* dmat, void* y, int ne, int p1, int q,
-           void* stream) {
+template <typename T, int P1, int Q>
+int launch_affine(const T* u, const T* c6, const T* w3, const T* bmat,
+                  const T* dmat, T* y, int ne, int p1, int q,
+                  cudaStream_t st) {
+  const int epb = affine::elems_per_block(
+      affine::warp_resident<P1, Q>(), p1, q);
+  const unsigned blocks = (unsigned)((ne + epb - 1) / epb);
+  pa_affine_kernel<T, P1, Q>
+      <<<blocks, affine::kThreads,
+         affine::smem_bytes(sizeof(T), p1, q, epb), st>>>(
+          u, c6, w3, bmat, dmat, y, ne, p1, q);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_element(const void* u, const void* g6, const void* bmat,
+                   const void* dmat, void* y, int ne, int p1, int q,
+                   void* stream) {
   if (ne <= 0) return 0;
   if (!dims_ok(p1, q)) return (int)cudaErrorInvalidValue;
   const Dims d = make_dims(p1, q);
-  const size_t smem = sizeof(T) * smem_values(d, kAffine);
+  const size_t smem = sizeof(T) * smem_values(d);
   const unsigned blocks = (unsigned)((ne + d.epb - 1) / d.epb);
-  const int threads = block_threads(d);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  pa_element_kernel<T><<<blocks, block_threads(d), smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(u), static_cast<const T*>(g6),
+      static_cast<const T*>(bmat), static_cast<const T*>(dmat),
+      static_cast<T*>(y), ne, p1, q);
+  return (int)cudaGetLastError();
+}
+
+// The orders the port's paths run (p = 1..4, q = p+1) are compiled fixed;
+// every other (p+1, q) takes the general instantiation.
+template <typename T>
+int dispatch_affine(const void* u, const void* c6, const void* w3,
+                  const void* bmat, const void* dmat, void* y, int ne, int p1,
+                  int q, void* stream) {
+  if (ne <= 0) return 0;
+  if (!affine::orders_ok(p1, q)) return (int)cudaErrorInvalidValue;
   const T* uu = static_cast<const T*>(u);
-  const T* mm = static_cast<const T*>(metric);
+  const T* cc = static_cast<const T*>(c6);
+  const T* ww = static_cast<const T*>(w3);
   const T* bb = static_cast<const T*>(bmat);
   const T* dd = static_cast<const T*>(dmat);
   T* yy = static_cast<T*>(y);
-  if constexpr (kAffine) {
-    pa_affine_kernel<T><<<blocks, threads, smem, st>>>(
-        uu, mm, static_cast<const T*>(w3), bb, dd, yy, ne, p1, q);
-  } else {
-    pa_element_kernel<T><<<blocks, threads, smem, st>>>(uu, mm, bb, dd, yy, ne,
-                                                        p1, q);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (q == p1 ? p1 : 0) {
+    case 2: return launch_affine<T, 2, 2>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
+    case 3: return launch_affine<T, 3, 3>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
+    case 4: return launch_affine<T, 4, 4>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
+    case 5: return launch_affine<T, 5, 5>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
+    default: return launch_affine<T, 0, 0>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -144,28 +177,26 @@ extern "C" int pa_apply_element_f32(const void* u, const void* g6,
                                     const void* bmat, const void* dmat,
                                     void* y, int ne, int p1, int q,
                                     void* stream) {
-  return launch<float, false>(u, g6, nullptr, bmat, dmat, y, ne, p1, q,
-                              stream);
+  return launch_element<float>(u, g6, bmat, dmat, y, ne, p1, q, stream);
 }
 
 extern "C" int pa_apply_element_f64(const void* u, const void* g6,
                                     const void* bmat, const void* dmat,
                                     void* y, int ne, int p1, int q,
                                     void* stream) {
-  return launch<double, false>(u, g6, nullptr, bmat, dmat, y, ne, p1, q,
-                               stream);
+  return launch_element<double>(u, g6, bmat, dmat, y, ne, p1, q, stream);
 }
 
 extern "C" int pa_apply_affine_f32(const void* u, const void* c6,
                                    const void* w3, const void* bmat,
                                    const void* dmat, void* y, int ne, int p1,
                                    int q, void* stream) {
-  return launch<float, true>(u, c6, w3, bmat, dmat, y, ne, p1, q, stream);
+  return dispatch_affine<float>(u, c6, w3, bmat, dmat, y, ne, p1, q, stream);
 }
 
 extern "C" int pa_apply_affine_f64(const void* u, const void* c6,
                                    const void* w3, const void* bmat,
                                    const void* dmat, void* y, int ne, int p1,
                                    int q, void* stream) {
-  return launch<double, true>(u, c6, w3, bmat, dmat, y, ne, p1, q, stream);
+  return dispatch_affine<double>(u, c6, w3, bmat, dmat, y, ne, p1, q, stream);
 }

@@ -13,12 +13,18 @@ essential boundary: read as zero, and the output's top plane is the input's
 
 - :func:`lattice_affine_apply` runs ``csrc/lattice_apply.cu`` (the port of
   the TPU kernel ``lpfem/kernels/lattice_apply.py::lattice_affine_apply``,
-  B2) on CUDA tensors and counts each call in ``LAUNCHES``. It takes the
-  plain version only because its input lies on the CPU; on a CUDA tensor it
-  launches the kernel or raises.
+  B2: two launches, the elements into an E-vector scratch and the fold) on
+  CUDA tensors and counts each call in ``LAUNCHES`` and, by order, in
+  ``LAUNCHES_BY_P``. It takes the plain version only because its input lies
+  on the CPU; on a CUDA tensor it launches the kernel or raises.
 - :func:`lattice_affine_apply_reference` is the plain PyTorch version: the
   index gather of every element's window, ``pa_apply_affine_reference``, and
   the fold with ``index_add_`` (the three steps the kernel fuses).
+- :func:`fold_table` and :func:`lattice_affine_apply_mirror` mirror the
+  kernel's fold in plain PyTorch: its closed-form map from a dof to the
+  elements and local nodes that hold it, and its summation order (ascending
+  element index), so the CPU tests check the arithmetic the fold launch
+  does.
 """
 
 from __future__ import annotations
@@ -31,11 +37,13 @@ import torch
 from .pa_apply import check_tables, pa_apply_affine_reference
 
 __all__ = ["lattice_elem_dofs", "lattice_affine_apply",
-           "lattice_affine_apply_reference"]
+           "lattice_affine_apply_reference", "fold_table",
+           "lattice_affine_apply_mirror"]
 
 LAUNCHES = 0          # calls of the kernel entry through lattice_affine_apply
+LAUNCHES_BY_P: dict[int, int] = {}     # the same calls by element order p
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _dof_dims(p: int, dims, periodic) -> tuple[int, int, int]:
@@ -79,6 +87,87 @@ def lattice_affine_apply_reference(x: torch.Tensor, C6: torch.Tensor,
         u[-Dx * Dy:] = 0.0
     ye = pa_apply_affine_reference(u[ed], C6, w3, B, D)
     y = torch.zeros_like(x).index_add_(0, ed.reshape(-1), ye.reshape(-1))
+    if ess_top:
+        y[-Dx * Dy:] = x[-Dx * Dy:]
+    return y
+
+
+def _axis_elems(D: int, p: int, n: int, periodic: bool):
+    """For every lattice index g < D along one axis, the (up to two)
+    elements that hold it in ascending order and g's local index in each,
+    as the fold kernel finds them: ``g % p != 0`` lies inside element
+    ``g // p``; otherwise g is shared by elements ``k - 1`` (local p) and
+    ``k`` (local 0), ``k = g // p``, where they exist, and on a periodic
+    axis index 0 by elements 0 and n - 1 across the seam. Returns (e0, l0,
+    e1, l1, has1), each [D]."""
+    g = torch.arange(D)
+    k, r = g // p, g % p
+    inner = r != 0
+    seam = (k == 0) & ~inner & periodic
+    e0 = torch.where(inner, k, (k - 1).clamp(min=0))
+    l0 = torch.where(inner, r, torch.where(k > 0, p, 0))
+    has1 = ~inner & (((k > 0) & (k < n)) | seam)
+    e1 = torch.where(seam, n - 1, k)
+    l1 = torch.where(seam, p, 0)
+    return e0, l0, e1, l1, has1
+
+
+@functools.lru_cache(maxsize=8)
+def _fold_table(p: int, dims, periodic, device: str) -> torch.Tensor:
+    Dx, Dy, Dz = _dof_dims(p, dims, periodic)
+    nex, ney, _ = dims
+    p1 = p + 1
+    L = p1 ** 3
+    axes = [_axis_elems(D, p, n, per) for D, n, per in
+            zip((Dx, Dy, Dz), dims, periodic)]
+
+    def pick(a, k):                # the k-th holder of every index: e, l, ok
+        e0, l0, e1, l1, has1 = a
+        return ((e0, l0, torch.ones_like(has1)) if k == 0
+                else (e1, l1, has1))
+
+    cols = []
+    for kz in (0, 1):              # the kernel's loop order: z, y, x
+        ez, lz, vz = (t[:, None, None] for t in pick(axes[2], kz))
+        for ky in (0, 1):
+            ey, ly, vy = (t[None, :, None] for t in pick(axes[1], ky))
+            for kx in (0, 1):
+                ex, lx, vx = (t[None, None, :] for t in pick(axes[0], kx))
+                idx = (((ez * ney + ey) * nex + ex) * L
+                       + (lz * p1 + ly) * p1 + lx)
+                cols.append(torch.where(vz & vy & vx, idx, -1).reshape(-1))
+    return torch.stack(cols, dim=1).to(device)
+
+
+def fold_table(p: int, dims, periodic, device) -> torch.Tensor:
+    """[n_dofs, 8] int64: for every dof, the flat E-vector indices
+    ``e * (p+1)^3 + local node`` of the element values the fold kernel adds,
+    in its order (ascending element index); -1 where a dof has fewer than 8
+    holders (the last few tables are kept)."""
+    return _fold_table(p, tuple(int(n) for n in dims),
+                       tuple(bool(a) for a in periodic), str(device))
+
+
+def lattice_affine_apply_mirror(x: torch.Tensor, C6: torch.Tensor,
+                                w3: torch.Tensor, B: torch.Tensor,
+                                D: torch.Tensor, dims, periodic,
+                                ess_top: bool = False) -> torch.Tensor:
+    """Plain PyTorch ``A x`` in the kernel's two steps: every element's
+    window (the top plane read as zero under ``ess_top``) through
+    ``pa_apply_affine_reference`` into an E-vector, then the fold of
+    :func:`fold_table` in its fixed order, the top plane from ``x``."""
+    p = B.shape[1] - 1
+    Dx, Dy, Dz = _dof_dims(p, dims, periodic)
+    ed = lattice_elem_dofs(p, dims, periodic, x.device)
+    u = x[ed]
+    if ess_top:
+        u = torch.where(ed >= Dx * Dy * (Dz - 1), 0.0, u)
+    ye = pa_apply_affine_reference(u, C6, w3, B, D).reshape(-1)
+    table = fold_table(p, dims, periodic, x.device)
+    y = torch.zeros_like(x)
+    for k in range(table.shape[1]):
+        col = table[:, k]
+        y = y + torch.where(col >= 0, ye[col.clamp(min=0)], 0.0)
     if ess_top:
         y[-Dx * Dy:] = x[-Dx * Dy:]
     return y
@@ -132,13 +221,18 @@ def lattice_affine_apply(x: torch.Tensor, C6: torch.Tensor, w3: torch.Tensor,
     p, q = _check(x, C6, w3, B, D, dims, periodic)
     fn = _entry(x.dtype)
     with torch.cuda.device(x.device):
+        # the E-vector between the two launches (from the caching allocator)
+        ye = torch.empty(C6.shape[0], (p + 1) ** 3, dtype=x.dtype,
+                         device=x.device)
         y = torch.empty_like(x)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), C6.data_ptr(), w3.data_ptr(), B.data_ptr(),
-                D.data_ptr(), y.data_ptr(), *(int(n) for n in dims), p, q,
-                int(bool(periodic[0])), int(bool(ess_top)), stream)
+                D.data_ptr(), ye.data_ptr(), y.data_ptr(),
+                *(int(n) for n in dims), p, q, int(bool(periodic[0])),
+                int(bool(ess_top)), stream)
     if rc != 0:
         raise RuntimeError(f"lattice_affine_apply kernel launch failed: "
                            f"CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_P[p] = LAUNCHES_BY_P.get(p, 0) + 1
     return y

@@ -7,8 +7,10 @@ transposed gradient. ``u [ne, (p+1)^3]`` is the E-vector (z, y, x; x
 fastest), ``B``/``D`` ``[q, p+1]`` the 1D basis values and derivatives at
 the Gauss points, from which ``Jr2 = [B(x)B(x)D; B(x)D(x)B; D(x)B(x)B]``
 [3Q, (p+1)^3] is formed (:func:`grad_interp`). The metric comes in two
-forms, each a TPU kernel of ``lpfem/kernels/pa_apply.py`` and here one CUDA
-source, ``csrc/pa_apply.cu`` (sum-factorised, the metric a template flag):
+forms, each a TPU kernel of ``lpfem/kernels/pa_apply.py`` and here a kernel
+of one CUDA source, ``csrc/pa_apply.cu`` (sum-factorised; the full metric on
+``csrc/element_body.cuh``, the affine one on ``csrc/affine_body.cuh``, with
+its orders fixed at compile time for p = 1..4, q = p+1):
 
 - full, on curved elements: ``G6q [ne, 6Q]`` in component-major layout
   ``(xx, xy, xz, yy, yz, zz)`` (``lpfem/operators.py:544-545``) —
@@ -17,7 +19,8 @@ source, ``csrc/pa_apply.cu`` (sum-factorised, the metric a template flag):
   and ``w3 [Q]`` the Gauss-weight products — :func:`pa_apply_affine`, the
   port of ``pa_apply_affine_kernel`` (B3a).
 
-Each wrapper counts its launches (``LAUNCHES`` / ``LAUNCHES_AFFINE``) and
+Each wrapper counts its launches (``LAUNCHES`` / ``LAUNCHES_AFFINE``, the
+latter also by element order p in ``LAUNCHES_AFFINE_BY_P``) and
 takes its plain version only because its input lies on the CPU; on a CUDA
 tensor it launches the kernel or raises. The plain versions
 (:func:`pa_apply_element_reference`, :func:`pa_apply_affine_reference`) are
@@ -38,6 +41,7 @@ __all__ = ["grad_interp", "pa_apply_element", "pa_apply_element_reference",
 
 LAUNCHES = 0          # kernel launches through pa_apply_element (B3b)
 LAUNCHES_AFFINE = 0   # kernel launches through pa_apply_affine (B3a)
+LAUNCHES_AFFINE_BY_P: dict[int, int] = {}   # the same by element order p
 
 _MAX_P1 = 8           # the kernel's shared-memory plan (csrc/pa_apply.cu)
 
@@ -190,4 +194,5 @@ def pa_apply_affine(u: torch.Tensor, C6: torch.Tensor, w3: torch.Tensor,
         raise ValueError("too many elements for the kernel's int sizes")
     ye = _launch("pa_apply_affine", u, (C6, w3, B, D), (ne, p1, q))
     LAUNCHES_AFFINE += 1
+    LAUNCHES_AFFINE_BY_P[p1 - 1] = LAUNCHES_AFFINE_BY_P.get(p1 - 1, 0) + 1
     return ye

@@ -75,6 +75,8 @@ def _spaces(name, p, tmp_path):
     """(port space, lpfem space) of the named mesh at order p."""
     if name == "lean-z":
         mesh = leaning_tank(6, 2, 3, **TANK, lean="z")
+    elif name == "lean-z odd":
+        mesh = leaning_tank(5, 2, 3, **TANK, lean="z")
     elif name == "lean-z finite":
         mesh = _finite_lean()
     elif name == "lean-z undeclared":
@@ -154,11 +156,13 @@ def test_plain_affine_element_apply_matches_fused(p, dtype, tol, tmp_path):
 
 
 @pytest.mark.parametrize("name,p", [("lean-z", 4), ("lean-z finite", 3),
-                                    ("lean-z", 2), ("lean-z", 1)])
+                                    ("lean-z", 2), ("lean-z", 1),
+                                    ("lean-z odd", 3)])
 def test_plain_lattice_apply_matches_lpfem_kernel(name, p, tmp_path):
-    """B2's plain version against lpfem's B2 in Pallas interpret mode
-    (float32, 1e-5) and against lpfem's float64 apply (1e-13), without and
-    with the top-plane constraint."""
+    """B2's plain version, and the plain mirror of the kernel's two
+    launches, against lpfem's B2 in Pallas interpret mode (float32, 1e-5)
+    and against lpfem's float64 apply (1e-13), without and with the
+    top-plane constraint."""
     st, sl = _spaces(name, p, tmp_path)
     op64 = LaplacePA(sl, dtype=jnp.float64, mode="fused")
     op32 = LaplacePA(sl, dtype=jnp.float32, mode="fused")
@@ -190,11 +194,53 @@ def test_plain_lattice_apply_matches_lpfem_kernel(name, p, tmp_path):
         assert _rel(y64.numpy(), y_l64) < 1e-13
         assert _rel(y32.numpy(), np.asarray(y_l32)) < 1e-5
         assert _rel(y32.numpy(), y_l64) < 1e-5
+        for t, y_ref, tol in ((t64, y_l64, 1e-13), (t32, y_l32, 1e-5)):
+            y_m = klat.lattice_affine_apply_mirror(
+                x64.to(t.dtype), t.C6, t.w3, t.B, t.D, st.elem_dims,
+                st.periodic, ess_top)
+            assert _rel(y_m.numpy(), np.asarray(y_ref)) < tol
         via_op = t64.constrained_apply_top(x64) if ess_top else t64.apply(x64)
         assert torch.equal(via_op, y64)
     np.testing.assert_array_equal(
         klat.lattice_elem_dofs(p, st.elem_dims, st.periodic, "cpu").numpy(),
         st.elem_dofs)
+
+
+@pytest.mark.parametrize("name,p,dq", [
+    *((n, p, 1) for n in ("lean-z", "lean-z odd", "lean-z finite")
+      for p in (1, 2, 3, 4)),
+    ("lean-z odd", 2, 2)])
+def test_fold_mirror_matches_index_add_fold(name, p, dq, tmp_path):
+    """The plain mirror of B2's two launches (windows, element apply, the
+    fold kernel's closed-form dof -> (element, local node) map summed in
+    ascending element index) against the index_add_ fold of
+    ``lattice_affine_apply_reference``: float64, 1e-15 relative, with and
+    without the top-plane constraint, q = p + dq. The map holds every
+    E-vector value exactly once, the dofs of the top plane included."""
+    st, _ = _spaces(name, p, tmp_path)
+    op = AffineLatticeLaplace(st, torch.float64, "cpu", q=p + dq)
+    assert op.B.shape == (p + dq, p + 1)
+    args = (op.C6, op.w3, op.B, op.D, st.elem_dims, st.periodic)
+    x = torch.tensor(np.random.default_rng(20 + p).standard_normal(
+        op.n_dofs))
+    for ess_top in (False, True):
+        y_ref = klat.lattice_affine_apply_reference(x, *args, ess_top)
+        y_m = klat.lattice_affine_apply_mirror(x, *args, ess_top)
+        assert _rel(y_m.numpy(), y_ref.numpy()) <= 1e-15
+    table = klat.fold_table(p, st.elem_dims, st.periodic, "cpu")
+    assert table.shape == (op.n_dofs, 8)
+    held = table[table >= 0]
+    assert torch.equal(torch.sort(held).values,
+                       torch.arange(st.mesh.n_elems * (p + 1) ** 3))
+    counts = (table >= 0).sum(dim=1)
+    ed = torch.as_tensor(st.elem_dofs)
+    assert torch.equal(counts, torch.bincount(ed.reshape(-1),
+                                              minlength=op.n_dofs))
+    # each dof's holders in ascending element index
+    elem = torch.where(table >= 0, table // (p + 1) ** 3, -1)
+    for k in range(7):
+        later = elem[:, k + 1:]
+        assert bool(((later < 0) | (later > elem[:, k:k + 1])).all())
 
 
 @pytest.mark.parametrize("form", ["apply", "constrained", "diag",

@@ -169,15 +169,18 @@ TANK = dict(Lx=1.0, Ly=0.1, Lz=1 / (2 * np.pi))
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-13)])
-@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("p,dq", [(1, 1), (2, 1), (3, 1), (4, 1), (2, 2),
+                                  (5, 1)])
 @pytest.mark.parametrize("nx", [6, 5])
-def test_affine_kernels_match_plain_versions(cuda, nx, p, dtype, tol):
+def test_affine_kernels_match_plain_versions(cuda, nx, p, dq, dtype, tol):
     """B2 and B3a on a leaning periodic tank (nx = 5: an odd element count
-    across the seam, the extra parity class): against their plain versions,
-    B2 bitwise repeatable, and each call counted as a launch — a CUDA tensor
-    never reaches the plain version."""
+    across the seam) at q = p + dq: the orders compiled fixed (p = 1..4,
+    q = p+1) and the general instantiation (q = p+2; p+1 = 6, an element
+    over two warps). Against their plain versions, B2 bitwise repeatable,
+    and each call counted as a launch — a CUDA tensor never reaches the
+    plain version."""
     space = CurvedLatticeSpace(leaning_tank(nx, 3, 3, **TANK), p)
-    op = AffineLatticeLaplace(space, dtype, cuda)
+    op = AffineLatticeLaplace(space, dtype, cuda, q=p + dq)
     gen = torch.Generator(device=cuda).manual_seed(p)
     x = torch.randn(op.n_dofs, generator=gen, device=cuda, dtype=dtype)
     args = (op.C6, op.w3, op.B, op.D, space.elem_dims, space.periodic)
@@ -196,6 +199,32 @@ def test_affine_kernels_match_plain_versions(cuda, nx, p, dtype, tol):
     ye_ref = kpa.pa_apply_affine_reference(u, op.C6, op.w3, op.B, op.D)
     torch.cuda.synchronize()
     assert float((ye - ye_ref).abs().max() / ye_ref.abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 4])
+def test_lattice_apply_is_two_kernels_and_no_memset_or_copy(cuda, p):
+    """B2 calls, profiled: at most two kernels per call on the device and
+    no memset or memcpy (ten calls after a spin kernel: the profiler can
+    lose a window's first events)."""
+    from torch.profiler import ProfilerActivity, profile
+    space = CurvedLatticeSpace(leaning_tank(6, 3, 3, **TANK), p)
+    op = AffineLatticeLaplace(space, torch.float32, cuda)
+    x = torch.randn(op.n_dofs, device=cuda)
+    op.constrained_apply_top(x)                      # build and load first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2_000_000)      # the window's first events can drop
+        for _ in range(10):
+            op.constrained_apply_top(x)
+        torch.cuda.synchronize()
+    device = {e.key: e.count for e in prof.key_averages()
+              if e.device_time_total > 0 and "spin_kernel" not in e.key}
+    moves = [k for k in device if "memset" in k.lower() or "memcpy" in k.lower()]
+    assert not moves, device
+    assert 1 <= len(device) <= 2, device
+    assert 1 <= sum(device.values()) <= 20, device
+    assert all("lattice_affine" in k for k in device), device
 
 
 @pytest.mark.cuda
