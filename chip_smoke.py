@@ -10,22 +10,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    build time and ptxas's report (registers, spills) per kernel.
 2. Kernels vs plain versions on the card, relative to max|y|: double
    <= 1e-13, float <= 1e-5.
-   - ``sep_apply`` (B1; float and double, p = 1, 2, 4, periodic and
-     non-periodic x, ess_top on and off, an odd Dx, the four p-multigrid
-     lattices of the ss.cpp path and the four of path C, the tank one
-     refinement coarser) against ``sep_apply_reference``; time per apply at
-     the ss.cpp lattices (device time from torch.profiler; per call, the
-     median of 5 chains of 30 applies timed with CUDA events); the cuSPARSE
-     SpMV of the assembled matrix at p = 4 (assembled on the card from the
-     element matrices of the same tank), p = 2 and p = 1.
-   - ``pa_apply_element`` (B3b; float and double, p = 1, 2, 4 on 37
-     elements with random metric, and the three p-multigrid levels of the
-     diffraction tank with random and with the real metric) against
+   - ``sep_apply`` (B1, one fused launch per apply; float and double) against
+     ``sep_apply_reference``, and twice on one input for bitwise equality:
+     p = 1, 2, 4 (compiled fixed) and 3, 6 (the general instantiation) on
+     periodic and non-periodic tanks and on edge lattices with random bands
+     (Dx = 2p+1 periodic; an odd Dx with Dy and Dz no multiples of the
+     tiles), ess_top on and off; the four p-multigrid lattices of the
+     ss.cpp path and the four of path C. At the ss.cpp lattices: device time
+     per apply from torch.profiler, each kernel's mean per recorded launch,
+     the activities per call (one kernel, no memset or copy), per call the
+     median of 5 chains of 30 applies timed with CUDA events, the time of
+     the three-pass kernel it replaced in brackets, the bound per order, and
+     the cuSPARSE SpMV of the assembled matrix at p = 4 (assembled on the
+     card from the element matrices of the same tank), p = 2 and p = 1 with
+     B1's ratio to it.
+   - ``pa_apply_element`` (B3b, on the column body; float and double) on
+     the small cylinder tank at p = 1..4 with q = p+1 (compiled fixed) and
+     (p, q) = (2, 4), (5, 6) (the general instantiation), real and random
+     symmetric positive definite metric, and the three p-multigrid levels
+     of the diffraction tank with both metrics, against
      ``pa_apply_element_reference``; per level the time of the kernel alone
-     (device time from torch.profiler, and per call from CUDA events, inputs
-     rotated over more than the 50 MB L2), of the full apply
-     (gather + kernel + scatter), of the plain version, and of the cuSPARSE
-     SpMV of the assembled operator.
+     (device time from torch.profiler, the activities per call, and per
+     call from CUDA events, inputs rotated over more than the 50 MB L2), of
+     the full apply (gather + kernel + scatter), of the plain version, and
+     of the cuSPARSE SpMV of the assembled operator.
    - ``pa_apply_affine`` (B3a) and ``lattice_affine_apply`` (B2) on sheared
      tanks (float and double; p = 1, 2, 3, 4 with q = p+1, the orders the
      kernels compile fixed, and q = p+2 and p+1 = 6, the general
@@ -57,8 +65,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    precision, r.z <= rz0*1e-16, maxit 300, p-multigrid, Chebyshev degree 4;
    512 x 33 x 129 = 2,179,584 dofs), one warm-up step, then 10 RK4 steps =
    40 Laplace solves with the launch counts set to 0 just before and read
-   just after. Requires a finite state, every solve converged and sep_apply
-   launches in the run. Then the accuracy check on the same configuration:
+   just after (B1 calls per RK4 step by order p printed). Requires a finite
+   state, every solve converged and sep_apply launches in the run. Then the accuracy check on the same configuration:
    one wave period in 40 RK4 steps must end with the nodal eta error
    (``eta_error_inf(quad=False)``) below 0.1 H. (The protocol's dt = T/10 is
    beyond RK4's stability limit for the fastest discrete free-surface modes
@@ -71,8 +79,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    dt = T/35 in float64, then the same 10 steps in mixed precision (depth
    cut from one period, 35 steps, to make room for phase 5; the width is the
    study's), each with the launch counts set to 0 just before and read
-   just after. Requires every solve converged, a finite state, B3b launches
-   in both runs, 0 < max|eta| < H, and the mixed run's final eta within
+   just after (B3b calls per RK4 step by order p printed). Requires every
+   solve converged, a finite state, B3b launches in both runs, 0 < max|eta| < H, and the mixed run's final eta within
    1e-2 max|eta| of the float64 run's.
 5. The general-mesh path, launch counts set to 0 just before each run and
    read just after; every solve must converge and the state stay finite:
@@ -93,7 +101,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    p (the wrappers' ``LAUNCHES_BY_P`` / ``LAUNCHES_AFFINE_BY_P``).
    - C: the unsheared tank written and loaded the same way must come out on
      the Kronecker operator (B1) and, after 4 RK4 steps, agree with the
-     generated tank's run to 1e-12.
+     generated tank's run to 1e-12 (B1 calls per RK4 step by order p
+     printed).
 
 6. The double-single outer loop: phase 3's configuration with
    ``hi_apply="ds"`` and phase 3's lmax (``fso._ds_op`` must be set): a cold
@@ -135,6 +144,12 @@ PATH_C_STEPS = 4
 KERNEL_SOURCES = ("sep_apply", "pa_apply", "lattice_apply", "sep_apply_ds")
 CHAIN = 30
 TOL = {"float32": 1e-5, "float64": 1e-13}
+# The float64 cuSPARSE yardstick at p=4 multiplies a matrix assembled from
+# element matrices, which sums in another order than B1's Kronecker bands.
+# Its gap to B1 read 1.0e-13 to 1.3e-13 of max|y| over nine inputs, and
+# 3.3e-8 with the matrix's values rounded to float32 (_element_csr_readings
+# prints both on every run; NVIDIA H100, PERF.md section 7)
+ELEMENT_CSR_TOL_F64 = 1e-12
 SMALL_ORDERS = ((1, 2), (2, 3), (3, 4), (4, 5), (2, 4), (5, 6))   # (p, q)
 DS_TOL_PLAIN = 1e-14           # B4 vs its plain version, of max|y|
 DS_TOL_F64 = 1e-13             # B4 vs float64 B1, relative 2-norm
@@ -180,19 +195,28 @@ def _profile_calls(fn, args_list) -> list[tuple[str, int, float]]:
     torch.profiler's ``key_averages``, after a warm-up call. The window
     opens with a ~1 ms spin kernel (left out of the result): without it a
     window of 30 short calls once recorded no event at all; with it the
-    profiler still loses ~3 launches a window (see :func:`_per_call`)."""
+    profiler still loses ~3 launches a window (see :func:`_per_call`), and
+    now and then a whole window: one that recorded no device activity is
+    taken again, up to three windows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn(*args_list[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(2_000_000)
-        for i in range(CHAIN):
-            fn(*args_list[i % len(args_list)])
-        torch.cuda.synchronize()
-    return [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
-            if getattr(e, "device_time_total", 0.0) > 0
-            and "spin_kernel" not in e.key]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(2_000_000)
+            for i in range(CHAIN):
+                fn(*args_list[i % len(args_list)])
+            torch.cuda.synchronize()
+        acts = [(e.key, e.count, e.device_time_total)
+                for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0.0) > 0
+                and "spin_kernel" not in e.key]
+        if acts:
+            break
+        print("[2] the profiler recorded no device activity in a window of "
+              f"{CHAIN} calls; taking it again")
+    return acts
 
 
 def _device_ms(fn, args_list, kernel_names,
@@ -346,33 +370,79 @@ def _main_lattices(ref_levels: int = CFG["ref_levels"]):
     return spaces
 
 
+def _random_bands(dims, p: int, gen, dtype):
+    """Six random band tables ``[2p+1, D]`` for the lattice ``dims``."""
+    import torch
+    Dx, Dy, Dz = dims
+    return tuple(torch.randn(2 * p + 1, D, generator=gen, device="cuda",
+                             dtype=torch.float64).to(dtype).contiguous()
+                 for D in (Dx, Dx, Dy, Dy, Dz, Dz))
+
+
+def _element_csr_readings(A, op, gap: float) -> dict:
+    """What the limit of the float64 yardstick assembled from element
+    matrices rests on: its gap to B1 (of max|y|) on the check's input and
+    the largest on eight other inputs, and the gap with the same matrix's
+    values rounded to float32, an assembly wrong at float32's precision,
+    which the limit must stay far below."""
+    import torch
+    from lpfem_torch.kernels.sep_apply import sep_apply
+    g = torch.Generator(device="cuda").manual_seed(100)
+    gaps = []
+    for _ in range(8):
+        x = torch.randn(op.dof_dims[::-1], generator=g, device="cuda",
+                        dtype=torch.float64)
+        y = sep_apply(x, op.bands, op.periodic).reshape(-1)
+        gaps.append(_rel_err(A @ x.reshape(-1), y)[1])
+    A32 = torch.sparse_csr_tensor(A.crow_indices(), A.col_indices(),
+                                  A.values().float().double(), size=A.shape)
+    rounded = _rel_err(A32 @ x.reshape(-1), y)[1]
+    del A32
+    torch.cuda.empty_cache()
+    out = dict(check_input=gap, other_inputs_max=max(gaps),
+               other_inputs=gaps, float32_values=rounded)
+    print(f"[2] float64 element-assembled SpMV vs B1, of max|y|: "
+          f"{gap:.3e} on the check's input, at most {max(gaps):.3e} on "
+          f"8 others; values rounded to float32: {rounded:.3e}; limit "
+          f"{ELEMENT_CSR_TOL_F64:.0e}")
+    return out
+
+
 def phase_sep_apply(report: dict) -> dict:
     import torch
-    from lpfem_torch.kernels.sep_apply import sep_apply, sep_apply_reference
+    from lpfem_torch.kernels.sep_apply import (choose_tiles, sep_apply,
+                                               sep_apply_reference)
     from lpfem_torch.operators import AffineLatticeLaplace, SeparableLattice
     from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace, grid_lines
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
+    def check_bands(x, bands, periodic, ess, label):
+        """B1 against its plain version, and bitwise on a second call."""
+        dt = str(x.dtype)[6:]
+        y = sep_apply(x, bands, periodic, ess)
+        same = torch.equal(y, sep_apply(x, bands, periodic, ess))
+        abs_err, rel = _rel_err(y, sep_apply_reference(x, bands, periodic,
+                                                       ess))
+        print(f"[2] sep_apply {label:52s} {dt:8s} ess_top={int(ess)} "
+              f"rel_err={rel:.2e} repeat bitwise {same}")
+        if not (rel <= TOL[dt] and same):
+            raise AssertionError(f"kernel disagrees with plain version or "
+                                 f"itself: {label} {dt} ess_top={ess}: "
+                                 f"{rel:.3e}, bitwise {same}")
+        return abs_err
+
     def check(space, dtype, ess, label):
         op = SeparableLattice(space, dtype, "cuda")
         x = torch.randn(space.dof_dims[::-1], generator=gen, device="cuda",
                         dtype=torch.float64).to(dtype)
-        y = sep_apply(x, op.bands, op.periodic, ess)
-        abs_err, rel = _rel_err(y, sep_apply_reference(x, op.bands,
-                                                       op.periodic, ess))
-        dt = str(dtype)[6:]
-        print(f"[2] sep_apply {label:40s} {dt:8s} ess_top={int(ess)} "
-              f"rel_err={rel:.2e}")
-        if not rel <= TOL[dt]:
-            raise AssertionError(f"kernel disagrees with plain version: "
-                                 f"{label} {dtype} ess_top={ess}: {rel:.3e}")
-        return op, x, abs_err
+        return op, x, check_bands(x, op.bands, op.periodic, ess, label)
 
     lz = 1.0 / (2 * 3.141592653589793)
     small = []
+    # p = 1, 2, 4 compiled fixed; 3 and 6 the general instantiation
     for per, nx, lx in ((True, 6, 1.0), (False, 5, 12.0)):
-        for p in (1, 2, 4):
+        for p in (1, 2, 3, 4, 6):
             small.append(LatticeSpace((grid_lines(nx, lx), grid_lines(2, 0.1),
                                        grid_lines(3, lz)), p,
                                       (per, False, False)))
@@ -384,6 +454,22 @@ def phase_sep_apply(report: dict) -> dict:
                 check(sp, dtype, ess, f"Dx={sp.dof_dims[0]} Dy="
                       f"{sp.dof_dims[1]} Dz={sp.dof_dims[2]} p={sp.p} "
                       f"{'periodic' if sp.periodic[0] else 'finite'}")
+    # edge lattices, random bands: Dx = 2p+1 periodic; an odd Dx whose y and
+    # z extents are no multiples of the tiles (y split in two tiles)
+    for p in (1, 2, 3, 4, 6):
+        for dims, per in (((2 * p + 1, 3, 4), True), ((267, 41, 19), True),
+                          ((267, 41, 19), False)):
+            for dtype in (torch.float32, torch.float64):
+                tiles = choose_tiles(dims, p, 4 if dtype == torch.float32
+                                     else 8)
+                bands = _random_bands(dims, p, gen, dtype)
+                x = torch.randn(dims[::-1], generator=gen, device="cuda",
+                                dtype=torch.float64).to(dtype)
+                for ess in (False, True):
+                    check_bands(x, bands, (per, False, False), ess,
+                                f"{'x'.join(map(str, dims))} p={p} "
+                                f"{'periodic' if per else 'finite'} tiles "
+                                f"{tiles[:3]}")
 
     def cases(li):
         """Every level's float32 inner solve; on the fine level also the
@@ -401,17 +487,28 @@ def phase_sep_apply(report: dict) -> dict:
     fine_f32 = None
     for li, sp in enumerate(_main_lattices()):
         dims = "x".join(str(d) for d in sp.dof_dims[::-1])
-        for dtype, ess in cases(li):
+        # float64 at p = 2 and 1 too (timed for the table of orders; no
+        # path runs it)
+        extra = [(torch.float64, True)] if li in (1, 2) else []
+        for dtype, ess in cases(li) + extra:
             op, x, abs_err = check(sp, dtype, ess,
                                    f"ss.cpp level {li}: p={sp.p} {dims}")
-            ms = _time_chain(lambda v: sep_apply(v, op.bands, op.periodic,
-                                                 ess), [(x,)])
-            dev = _device_ms(lambda v: sep_apply(v, op.bands, op.periodic,
-                                                 ess), [(x,)],
-                             ("pass_x", "pass_y", "pass_z"))
+            b1 = lambda v: sep_apply(v, op.bands, op.periodic, ess)
+            ms = _time_chain(b1, [(x,)])
+            acts = _profile_calls(b1, [(x,)])
+            dev = _device_ms(b1, [(x,)], B1_KERNEL, acts)
+            act = _per_call(acts)
+            dt = str(dtype)[6:]
+            print(f"[2] sep_apply level {li} {dt} ess_top={int(ess)} on the "
+                  f"device: {act['kernels_per_call']:.2f} kernels per call "
+                  f"recorded ({act['launch_ms']:.4f} ms per launch), "
+                  f"{act['memsets']} memsets, {act['copies']} copies")
+            if (len(act["kernels"]) != 1 or act["kernels_per_call"] > 1
+                    or act["memsets"] or act["copies"]):
+                raise AssertionError(f"B1 calls ran {act} (one kernel, no "
+                                     "memset or copy)")
             plain = _time_chain(lambda v: sep_apply_reference(
                 v, op.bands, op.periodic, ess), [(x,)])
-            dt = str(dtype)[6:]
             n, p = sp.n_dofs, sp.p
             # input read once, output written once, the six bands; the
             # kernel's 7(2p+1) multiply-adds per dof
@@ -421,8 +518,12 @@ def phase_sep_apply(report: dict) -> dict:
             row = dict(level=li, p=p, dims=dims, dtype=dt, ess_top=ess,
                        ms=dev if dev is not None else ms, call_ms=ms,
                        device_ms=dev, plain_ms=plain, max_abs_err=abs_err,
-                       bound_ms=bound, bound_by=by, library_ms=None)
-            if li in (1, 2) or (li == 0 and ess):
+                       bound_ms=bound, bound_by=by, library_ms=None,
+                       launch_ms=act["launch_ms"],
+                       kernels_per_call_recorded=act["kernels_per_call"],
+                       tiles=choose_tiles(sp.dof_dims, p, x.element_size()))
+            if (li in (1, 2) and (dtype, ess) not in extra) or (li == 0
+                                                                and ess):
                 # cuSPARSE yardstick: SpMV of the assembled matrix at this
                 # lattice (the operator without the top-plane identity);
                 # at p=4 assembled on the card from the element form of the
@@ -436,20 +537,32 @@ def phase_sep_apply(report: dict) -> dict:
                 xf = x.reshape(-1)
                 _, rel = _rel_err(A @ xf, sep_apply(
                     x, op.bands, op.periodic).reshape(-1))
-                if not rel <= TOL[dt]:
-                    raise AssertionError(f"CSR SpMV disagrees: {rel:.3e}")
+                limit = TOL[dt]
+                if li == 0 and dtype == torch.float64:
+                    limit = ELEMENT_CSR_TOL_F64
+                    row["spmv_gap_readings"] = _element_csr_readings(A, op,
+                                                                     rel)
+                if not rel <= limit:
+                    raise AssertionError(f"CSR SpMV disagrees: {rel:.3e} "
+                                         f"(limit {limit:.0e})")
                 row["library_ms"] = _time_chain(lambda v: A @ v, [(xf,)])
+                row["library_device_ms"] = _device_ms(lambda v: A @ v,
+                                                      [(xf,)], None)
                 row["library_nnz"] = int(A.values().numel())
+                lib_dev = row["library_device_ms"] or row["library_ms"]
+                row["ratio_to_spmv"] = row["ms"] / lib_dev
                 del A
                 torch.cuda.empty_cache()
             times.append(row)
-            lib = (f", cuSPARSE SpMV {row['library_ms']:.4f} ms "
-                   f"({row['library_nnz']} nonzeros)"
+            lib = (f", cuSPARSE SpMV {row['library_ms']:.4f} ms per call "
+                   f"({row['library_nnz']} nonzeros; B1 / SpMV on the "
+                   f"device {row['ratio_to_spmv']:.3f})"
                    if row["library_ms"] is not None else "")
             print(f"[2] time sep_apply level {li} p={p} {dims} {dt} "
-                  f"ess_top={int(ess)}: kernel {row['ms']:.4f} ms on the "
-                  f"device ({ms:.4f} ms per call, host included), plain "
-                  f"{plain:.4f} ms, bound {bound:.4f} ms ({by}){lib}")
+                  f"ess_top={int(ess)} tiles {row['tiles'][:3]}: kernel "
+                  f"{row['ms']:.4f} ms on the device ({ms:.4f} ms per "
+                  f"call, host included), plain {plain:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}){lib}")
             if li == 0 and dtype == torch.float32 and ess:
                 fine_f32 = row
     report["sep_apply_times"] = times
@@ -464,7 +577,7 @@ def _study_mesh():
 
 
 def _element_flops(ne: int, p1: int, q: int, affine: bool = False) -> int:
-    """Flops of the sum-factorised element apply (csrc/element_body.cuh):
+    """Flops of the sum-factorised element apply (csrc/affine_body.cuh):
     the six contractions, and per Gauss point the symmetric 3x3 product
     (15) and, with the affine metric, the three weight products."""
     macs = 4 * p1 ** 3 * q + 6 * p1 ** 2 * q ** 2 + 6 * p1 * q ** 3
@@ -491,19 +604,22 @@ def phase_pa_apply(report: dict) -> dict:
                                  f"{label} {dt}: {rel:.3e}")
         return abs_err
 
-    for p in (1, 2, 4):
+    # the orders compiled fixed (q = p+1), and the general instantiation
+    # (q = p+2; p+1 = 6: an element over two warps)
+    for p, q in SMALL_ORDERS:
         mesh = make_half_cylinder_tank(n_theta=12, n_r=6, nz=1, geom_order=p)
         for dtype in (torch.float32, torch.float64):
-            op = ElementLaplace(CurvedLatticeSpace(mesh, p), dtype, "cuda")
-            L, Q = (p + 1) ** 3, (p + 1) ** 3
+            op = ElementLaplace(CurvedLatticeSpace(mesh, p), dtype, "cuda",
+                                q=q)
+            ne, L = op.G6q.shape[0], (p + 1) ** 3
             u = torch.randn(37, L, generator=gen, device="cuda", dtype=dtype)
-            G = torch.rand(37, 6 * Q, generator=gen, device="cuda",
-                           dtype=dtype)
-            check(u, G, op.B, op.D, f"p={p} ne=37 random metric")
-            u = torch.randn(op.G6q.shape[0], L, generator=gen, device="cuda",
-                            dtype=dtype)
-            check(u, op.G6q, op.B, op.D,
-                  f"p={p} ne={op.G6q.shape[0]} small tank metric")
+            check(u, torch.rand(37, 6 * q ** 3, generator=gen, device="cuda",
+                                dtype=dtype), op.B, op.D,
+                  f"p={p} q={q} ne=37 random metric")
+            u = torch.randn(ne, L, generator=gen, device="cuda", dtype=dtype)
+            check(u, op.G6q, op.B, op.D, f"p={p} q={q} ne={ne} small tank")
+            check(u, _random_spd_metric(ne, q, gen, dtype), op.B, op.D,
+                  f"p={p} q={q} ne={ne} random SPD metric")
 
     fine = CurvedLatticeSpace(_study_mesh(), 4)
     if fine.n_dofs != CYL_DOFS:
@@ -524,15 +640,25 @@ def phase_pa_apply(report: dict) -> dict:
             check(u, torch.rand(ne, Q6, generator=gen, device="cuda",
                                 dtype=dtype), op.B, op.D,
                   label + " random metric")
+            check(u, _random_spd_metric(ne, p + 1, gen, dtype), op.B,
+                  op.D, label + " random SPD metric")
             abs_err = check(u, op.G6q, op.B, op.D, label + " real metric")
             # kernel alone: inputs rotated over > 50 MB so L2 stays cold
             nbytes_set = (2 * u.numel() + op.G6q.numel()) * u.element_size()
             n_sets = max(1, -(-60_000_000 // nbytes_set))
             sets = [(u.clone(), op.G6q.clone()) for _ in range(n_sets)]
-            ms = _time_chain(lambda a, g: pa_apply_element(a, g, op.B, op.D),
-                             sets)
-            dev = _device_ms(lambda a, g: pa_apply_element(a, g, op.B, op.D),
-                             sets, ("pa_element_kernel",))
+            b3b = lambda a, g: pa_apply_element(a, g, op.B, op.D)
+            ms = _time_chain(b3b, sets)
+            acts = _profile_calls(b3b, sets)
+            dev = _device_ms(b3b, sets, ("pa_element_kernel",), acts)
+            act = _per_call(acts)
+            print(f"[2] pa_apply_element p={p} {dt} on the device: "
+                  f"{act['kernels_per_call']:.2f} kernels per call recorded "
+                  f"({act['launch_ms']:.4f} ms per launch), "
+                  f"{act['memsets']} memsets, {act['copies']} copies")
+            if (len(act["kernels"]) != 1 or act["kernels_per_call"] > 1
+                    or act["memsets"] or act["copies"]):
+                raise AssertionError(f"B3b calls ran {act}")
             plain = _time_chain(lambda a, g: pa_apply_element_reference(
                 a, g, op.B, op.D), sets[:1])
             x = torch.randn(space.n_dofs, generator=gen, device="cuda",
@@ -552,7 +678,7 @@ def phase_pa_apply(report: dict) -> dict:
                 _element_flops(ne, p + 1, q), dt)
             row = dict(p=p, ne=ne, dtype=dt,
                        ms=dev if dev is not None else ms, call_ms=ms,
-                       device_ms=dev,
+                       device_ms=dev, launch_ms=act["launch_ms"],
                        plain_ms=plain, full_apply_ms=full,
                        library_full_apply_ms=csr, library_nnz=nnz,
                        max_abs_err=abs_err, bound_ms=bound, bound_by=by,
@@ -598,6 +724,14 @@ def _leaning_mesh():
     from lpfem_torch.experiments.leaning_tank import leaning_tank
     dims, sizes = _tank_dims()
     return leaning_tank(*dims, *sizes, ref_levels=CFG["ref_levels"], lean="z")
+
+
+def _random_spd_metric(ne: int, q: int, gen, dtype):
+    """[ne, 6 q^3]: a random symmetric positive definite metric at every
+    Gauss point, component-major as ``G6q``."""
+    Q = q ** 3
+    return (_random_spd6(ne * Q, gen, dtype).reshape(ne, Q, 6)
+            .permute(0, 2, 1).reshape(ne, 6 * Q).contiguous())
 
 
 def _random_spd6(ne: int, gen, dtype):
@@ -795,7 +929,7 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
                 b1 = lambda v: sep_apply(v.view(sep.dof_dims[::-1]),
                                          sep.bands, sep.periodic, ess)
                 b1_ms = _time_chain(b1, sets)
-                b1_dev = _device_ms(b1, sets, ("pass_x", "pass_y", "pass_z"))
+                b1_dev = _device_ms(b1, sets, B1_KERNEL)
                 bound, by = _bound(size * (2 * n + tables), flops, dt)
                 row = dict(p=p, ne=ne, dofs=n, dtype=dt, ess_top=ess,
                            ms=dev if dev is not None else ms, call_ms=ms,
@@ -980,12 +1114,14 @@ def phase_sep_apply_ds(report: dict) -> dict:
     return head
 
 
+B1_KERNEL = ("sep_tile_kernel",)
+
 _CATEGORIES = (("B4 sep_apply_ds", ("ds_pass_x", "ds_pass_y", "ds_pass_z")),
                ("B3b pa_apply_element", ("pa_element_kernel",)),
                ("B3a pa_apply_affine", ("pa_affine_kernel",)),
                ("B2 lattice_affine_apply", ("lattice_affine_kernel",
                                             "lattice_affine_fold")),
-               ("B1 sep_apply", ("pass_x", "pass_y", "pass_z")),
+               ("B1 sep_apply", B1_KERNEL),
                ("matmul", ("gemm", "gemv", "Gemm", "Gemv", "cutlass",
                            "dot_kernel", "splitKreduce")),
                ("reductions", ("reduce", "Reduce")),
@@ -1060,7 +1196,9 @@ def _zero_counts():
     from lpfem_torch.kernels import (lattice_apply, pa_apply, sep_apply,
                                      sep_apply_ds)
     sep_apply.LAUNCHES = 0
+    sep_apply.LAUNCHES_BY_P.clear()
     pa_apply.LAUNCHES = 0
+    pa_apply.LAUNCHES_BY_P.clear()
     pa_apply.LAUNCHES_AFFINE = 0
     pa_apply.LAUNCHES_AFFINE_BY_P.clear()
     lattice_apply.LAUNCHES = 0
@@ -1076,6 +1214,9 @@ def _read_counts() -> dict:
             "pa_apply_affine": pa_apply.LAUNCHES_AFFINE,
             "lattice_affine_apply": lattice_apply.LAUNCHES,
             "sep_apply_ds": sep_apply_ds.LAUNCHES,
+            "sep_apply_by_p": dict(sorted(sep_apply.LAUNCHES_BY_P.items())),
+            "pa_apply_element_by_p": dict(sorted(
+                pa_apply.LAUNCHES_BY_P.items())),
             "pa_apply_affine_by_p": dict(sorted(
                 pa_apply.LAUNCHES_AFFINE_BY_P.items())),
             "lattice_affine_apply_by_p": dict(sorted(
@@ -1140,7 +1281,9 @@ def phase_ss_path(report: dict) -> int:
           f"inner CG iterations (max {stats.max_iters} per solve), "
           f"{stats.syncs} host syncs ({stats.syncs / stats.n_solves:.1f} per "
           f"solve, idle round trip {sync_us:.1f} us each), launches {counts}")
-    report["ss_path"] = dict(
+    b1_by_p = {p: c / N_STEPS for p, c in counts["sep_apply_by_p"].items()}
+    print(f"[3] B1 sep_apply calls per RK4 step by order p: {b1_by_p}")
+    report["ss_path"] = dict(b1_calls_per_step_by_p=b1_by_p,
         dofs=n, surface_dofs=ns, setup_s=setup, wall_s=wall,
         dof_solves_per_s=rate, n_solves=stats.n_solves,
         cold_solve_iters=cold.iters, expected_cold_iters=EXPECTED_COLD_ITERS,
@@ -1227,6 +1370,10 @@ def phase_diffraction(report: dict) -> int:
               f"CG iterations (max {stats.max_iters} per solve), "
               f"{stats.syncs} host syncs, launches {counts}, max|eta| "
               f"{amax:.5f}, peak device memory {peak / 1e6:.0f} MB")
+        b3b_by_p = {p: c / CYL_STEPS
+                    for p, c in counts["pa_apply_element_by_p"].items()}
+        print(f"[4] {dtype}: B3b pa_apply_element calls per RK4 step by "
+              f"order p: {b3b_by_p}")
         prof = None
         if dtype == "float64":
             prof = _profile_step(prob, (y, phi), t)
@@ -1239,6 +1386,7 @@ def phase_diffraction(report: dict) -> int:
             dofs=n, surface_dofs=ns, setup_s=setup, wall_s=wall,
             n_solves=stats.n_solves, total_inner_iters=stats.total_iters,
             max_iters=stats.max_iters, syncs=stats.syncs, launches=counts,
+            b3b_calls_per_step_by_p=b3b_by_p,
             max_abs_eta=amax, t=t, peak_mem_bytes=peak,
             lmax=prob.precond.lmax))
         del prob, y, phi
@@ -1431,6 +1579,9 @@ def phase_general_mesh(report: dict, ss_err: float) -> dict:
           f"{PATH_C_STEPS} RK4 steps, launches {counts}; against the "
           f"generated tank max|eta diff| {d_eta:.2e}, max|phi diff| "
           f"{d_phi:.2e} (limit 1e-12)")
+    c_by_p = {p: c / PATH_C_STEPS
+              for p, c in counts["sep_apply_by_p"].items()}
+    print(f"[5C] B1 sep_apply calls per RK4 step by order p: {c_by_p}")
     if not (d_eta <= 1e-12 and d_phi <= 1e-12):
         raise AssertionError("path C disagrees with the generated tank")
     report["path_c"] = dict(dofs=loaded.space.n_dofs, launches=counts,
@@ -1568,11 +1719,15 @@ def main() -> int:
              source="lpfem_torch/csrc/sep_apply.cu",
              replaces="lpfem/kernels/sep_apply.py:230",
              launches=ss["launches"], path_c_launches=launches["C"],
+             launches_per_step_by_p=report["ss_path"][
+                 "b1_calls_per_step_by_p"],
              **{k: sep[k] for k in keys}),
         dict(name="pa_apply_element", route="cuda",
              source="lpfem_torch/csrc/pa_apply.cu",
              replaces="lpfem/kernels/pa_apply.py:124",
              launches=pa_launches, library_ms=None,
+             launches_per_step_by_p=report["diffraction"]["float64"][
+                 "b3b_calls_per_step_by_p"],
              full_apply_ms=pa["full_apply_ms"],
              library_full_apply_ms=pa["library_full_apply_ms"],
              **{k: pa[k] for k in keys if k != "library_ms"}),

@@ -1,12 +1,20 @@
-// The element body of the affine kernels, B2 (lattice_apply.cu) and B3a
-// (pa_apply.cu): for every element e of a block,
+// The column element body of the element kernels, B2 (lattice_apply.cu),
+// B3a and B3b (pa_apply.cu): for every element e of a block,
 //
-//     ye = Jr2^T ( w3 o C6[e] (Jr2 u) ),   Jr2 = [B(x)B(x)D; B(x)D(x)B; D(x)B(x)B]
+//     ye = Jr2^T ( G[e] o (Jr2 u) ),   Jr2 = [B(x)B(x)D; B(x)D(x)B; D(x)B(x)B]
 //
 // with u [(p+1)^3] the element's values (z, y, x; x fastest), B and D
-// [q, p+1] the 1D basis values and derivatives at the Gauss points, w3 [q^3]
-// the Gauss-weight products and C6[e] the six constants of the affine metric
-// (xx, xy, xz, yy, yz, zz).
+// [q, p+1] the 1D basis values and derivatives at the Gauss points, and G[e]
+// the symmetric 3x3 metric at each Gauss point, components (xx, xy, xz, yy,
+// yz, zz). The metric is a policy of apply_elements:
+//
+// - AffineMetric (B2, B3a): G[e] at point k is w3[k] C6[e], the six constants
+//   of element e in registers and the Gauss-weight products w3 in shared
+//   memory;
+// - FullMetric (B3b): the six values G6q[e, c*Q + k] (Q = q^3, k = (qz*q +
+//   qy)*q + qx) read per point from device memory. The lanes of an element
+//   read consecutive (qy, qx) of one component, so each read is coalesced and
+//   the metric, the bytes that bound B3b, is streamed exactly once.
 //
 // Designed for Hopper, after MFEM's 3-D partial-assembly diffusion kernels:
 //
@@ -104,6 +112,67 @@ struct RowsOut {
   }
 };
 
+// The metric policies: element(e, valid) gives a functor that maps the
+// reference gradient (gx, gy, gz) at Gauss point k = (qz*q + qy)*q + qx to
+// h = G g; weights() is the table apply_elements copies into shared memory
+// (sW, passed back to the functor), or nullptr.
+template <typename T>
+struct AffineAt {
+  T C[6];
+  __device__ __forceinline__ void operator()(int k, const T* sW, T gx, T gy,
+                                             T gz, T& h0, T& h1,
+                                             T& h2) const {
+    const T w = sW[k];
+    h0 = (C[0] * gx + C[1] * gy + C[2] * gz) * w;
+    h1 = (C[1] * gx + C[3] * gy + C[4] * gz) * w;
+    h2 = (C[2] * gx + C[4] * gy + C[5] * gz) * w;
+  }
+};
+
+template <typename T>
+struct AffineMetric {
+  const T* __restrict__ c6;   // [ne, 6]
+  const T* __restrict__ w3;   // [q^3]
+  __device__ const T* weights() const { return w3; }
+  __device__ AffineAt<T> element(long long e, bool valid) const {
+    AffineAt<T> at;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) at.C[k] = valid ? c6[e * 6 + k] : T(0);
+    return at;
+  }
+};
+
+template <typename T>
+struct FullAt {
+  const T* __restrict__ g;    // element e's row of G6q
+  int nq;                      // q^3
+  bool valid;
+  __device__ __forceinline__ void operator()(int k, const T*, T gx, T gy,
+                                             T gz, T& h0, T& h1,
+                                             T& h2) const {
+    if (!valid) {
+      h0 = h1 = h2 = T(0);
+      return;
+    }
+    const T gxx = __ldg(g + k), gxy = __ldg(g + nq + k);
+    const T gxz = __ldg(g + 2 * nq + k), gyy = __ldg(g + 3 * nq + k);
+    const T gyz = __ldg(g + 4 * nq + k), gzz = __ldg(g + 5 * nq + k);
+    h0 = gxx * gx + gxy * gy + gxz * gz;
+    h1 = gxy * gx + gyy * gy + gyz * gz;
+    h2 = gxz * gx + gyz * gy + gzz * gz;
+  }
+};
+
+template <typename T>
+struct FullMetric {
+  const T* __restrict__ g6;   // [ne, 6 q^3], component-major
+  int nq;                      // q^3
+  __device__ const T* weights() const { return nullptr; }
+  __device__ FullAt<T> element(long long e, bool valid) const {
+    return FullAt<T>{valid ? g6 + e * 6 * nq : g6, nq, valid};
+  }
+};
+
 template <bool kWarp>
 __device__ __forceinline__ void sync_element() {
   if constexpr (kWarp) {
@@ -116,11 +185,12 @@ __device__ __forceinline__ void sync_element() {
 // The block's elements blockIdx.x * epb + el, el < epb, while e < ne.
 // Launch with kThreads threads and smem_bytes(sizeof(T), ...) of dynamic
 // shared memory.
-template <typename T, int P1, int Q, typename Load, typename Store>
+template <typename T, int P1, int Q, typename Metric, typename Load,
+          typename Store>
 __device__ __forceinline__ void apply_elements(
-    int p1_, int q_, long long ne, const T* __restrict__ c6,
-    const T* __restrict__ w3, const T* __restrict__ bmat,
-    const T* __restrict__ dmat, const Load& load, const Store& store) {
+    int p1_, int q_, long long ne, const Metric& metric,
+    const T* __restrict__ bmat, const T* __restrict__ dmat, const Load& load,
+    const Store& store) {
   constexpr bool kWarp = warp_resident<P1, Q>();
   constexpr int MP = P1 > 0 ? P1 : kMaxN;    // register extents
   constexpr int MQ = Q > 0 ? Q : kMaxN;
@@ -166,10 +236,10 @@ __device__ __forceinline__ void apply_elements(
     sB[i] = bmat[i];
     sD[i] = dmat[i];
   }
-  for (int i = tid; i < q * q * q; i += blockDim.x) sW[i] = w3[i];
-  T C[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) C[k] = valid ? c6[e * 6 + k] : T(0);
+  if (const T* w3 = metric.weights()) {
+    for (int i = tid; i < q * q * q; i += blockDim.x) sW[i] = w3[i];
+  }
+  const auto at = metric.element(e, valid);
   __syncthreads();
 
   // u -> s0 [z][y][x]
@@ -266,10 +336,8 @@ __device__ __forceinline__ void apply_elements(
             gz += dz[z] * a2[z];
           }
         }
-        const T w = sW[(qz * q + ty) * q + tx];
-        const T h0 = (C[0] * gx + C[1] * gy + C[2] * gz) * w;
-        const T h1 = (C[1] * gx + C[3] * gy + C[4] * gz) * w;
-        const T h2 = (C[2] * gx + C[4] * gy + C[5] * gz) * w;
+        T h0, h1, h2;
+        at((qz * q + ty) * q + tx, sW, gx, gy, gz, h0, h1, h2);
 #pragma unroll
         for (int z = 0; z < MP; ++z) {
           if (z < p1) {

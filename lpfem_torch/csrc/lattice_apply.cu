@@ -100,8 +100,9 @@ lattice_affine_kernel(const T* __restrict__ x, const T* __restrict__ c6,
                       Lattice lat, int q) {
   const int p1 = lat.p + 1;
   affine::apply_elements<T, P1, Q>(
-      p1, q, (long long)lat.nex * lat.ney * lat.nez, c6, w3, bmat, dmat,
-      Window<T>{x, lat}, affine::RowsOut<T>{ye, p1 * p1 * p1});
+      p1, q, (long long)lat.nex * lat.ney * lat.nez,
+      affine::AffineMetric<T>{c6, w3}, bmat, dmat, Window<T>{x, lat},
+      affine::RowsOut<T>{ye, p1 * p1 * p1});
 }
 
 // The elements along one axis that hold lattice index g, in ascending order,

@@ -6,10 +6,10 @@
 //
 // - pa_apply_element_kernel (B3b), the full metric: G6 holds the symmetric
 //   3x3 metric w|J|J^-1J^-T at the q^3 Gauss points in component-major layout
-//   [ne, 6Q] with components (xx, xy, xz, yy, yz, zz); body element_body.cuh;
+//   [ne, 6Q] with components (xx, xy, xz, yy, yz, zz);
 // - pa_apply_affine_kernel (B3a), affine elements: G[e, k] = w3[k] C6[e] with
 //   six constants per element, C6 [ne, 6], and the Gauss-weight products
-//   w3 [Q]; body affine_body.cuh.
+//   w3 [Q]. Both run the body of affine_body.cuh, each with its metric.
 //
 // u[e] holds the element's (p+1)^3 dof values (z, y, x; x fastest), and
 // Jr2 = [B(x)B(x)D; B(x)D(x)B; D(x)B(x)B] is the reference-gradient
@@ -35,15 +35,14 @@
 // make the operations 21.4 us, twice the bound counted at the tensor cores'
 // 67 TFLOP/s, which an exact CUDA-core kernel cannot reach.
 //
-// Design against that. B3b: the metric is read once, coalesced (the threads
-// of an element read consecutive points of one component); one thread per
-// point of each stage, stages separated by __syncthreads. B3a is latency-
-// bound in that layout (six block barriers per apply, every intermediate in
-// shared memory), so it runs affine_body.cuh instead: orders fixed at
-// compile time (p = 1..4 with q = p+1, a general instantiation for the rest
-// of 2 <= p+1 <= 8, 1 <= q <= 8), one thread per (x, y) column with z in
-// registers, elements packed inside a warp with __syncwarp only; u and ye
-// are read and written once, coalesced, C6[e] is a broadcast.
+// Design against that. Both run the column body of affine_body.cuh: orders
+// fixed at compile time (p = 1..4 with q = p+1, a general instantiation for
+// the rest of 2 <= p+1 <= 8, 1 <= q <= 8), one thread per (x, y) column with
+// z in registers, elements packed inside a warp with __syncwarp only; u and
+// ye are read and written once, coalesced. B3a's metric is C6[e], a
+// broadcast, times w3 in shared memory; B3b's is the full-metric policy,
+// which streams G6 once, the lanes of an element reading consecutive Gauss
+// points of one component at each qz.
 //
 // Exact in its dtype: plain fused multiply-adds in float or double, no
 // tensor cores. The sums run in another order than the plain PyTorch versions
@@ -59,51 +58,26 @@
 #include <cuda_runtime.h>
 
 #include "affine_body.cuh"
-#include "element_body.cuh"
 
 namespace {
 
 using namespace lpfem;
 
-// The block's el-th element is e0 + el, while it exists.
-struct Consecutive {
-  long long e0;
-  int ne;
-  __device__ long long operator()(int el) const {
-    const long long e = e0 + el;
-    return e < ne ? e : -1;
-  }
-};
-
-// B3b: the block's elements through element_body.cuh. Four blocks of 256
-// threads per SM cap the registers at 64 a thread.
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads, 4)
+// B3b: u[e] rows in, ye[e] rows out, the full metric.
+template <typename T, int P1, int Q>
+__global__ void __launch_bounds__(affine::kThreads)
 pa_element_kernel(const T* __restrict__ u, const T* __restrict__ g6,
                   const T* __restrict__ bmat, const T* __restrict__ dmat,
                   T* __restrict__ y, int ne, int p1, int q) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Dims d = make_dims(p1, q);
-  const Smem<T> s = carve<T>(reinterpret_cast<T*>(smem_raw), d);
-  const Consecutive elem{(long long)blockIdx.x * d.epb, ne};
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  load_tables<T>(s, d, bmat, dmat);
-  for (int i = tid; i < d.epb * d.L; i += nt) {
-    s.su[i] = elem(i / d.L) >= 0 ? u[elem.e0 * d.L + i] : T(0);
-  }
-  __syncthreads();
-
-  element_stages<T>(s, d, g6, elem);
-
-  for (int i = tid; i < d.epb * d.L; i += nt) {
-    if (elem(i / d.L) < 0) continue;
-    y[elem.e0 * d.L + i] = element_out(s, d, i);
-  }
+  const int L = p1 * p1 * p1;
+  affine::apply_elements<T, P1, Q>(p1, q, ne,
+                                   affine::FullMetric<T>{g6, q * q * q},
+                                   bmat, dmat, affine::RowsIn<T>{u, L},
+                                   affine::RowsOut<T>{y, L});
 }
 
-// B3a: u[e] rows in, ye[e] rows out, on the affine body (kernel name kept,
-// so that a profile tells B3a from B3b).
+// B3a: the affine metric (kernel names kept, so that a profile tells B3a
+// from B3b).
 template <typename T, int P1, int Q>
 __global__ void __launch_bounds__(affine::kThreads)
 pa_affine_kernel(const T* __restrict__ u, const T* __restrict__ c6,
@@ -111,9 +85,22 @@ pa_affine_kernel(const T* __restrict__ u, const T* __restrict__ c6,
                  const T* __restrict__ dmat, T* __restrict__ y, int ne,
                  int p1, int q) {
   const int L = p1 * p1 * p1;
-  affine::apply_elements<T, P1, Q>(p1, q, ne, c6, w3, bmat, dmat,
-                                   affine::RowsIn<T>{u, L},
+  affine::apply_elements<T, P1, Q>(p1, q, ne, affine::AffineMetric<T>{c6, w3},
+                                   bmat, dmat, affine::RowsIn<T>{u, L},
                                    affine::RowsOut<T>{y, L});
+}
+
+template <typename T, int P1, int Q>
+int launch_element(const T* u, const T* g6, const T* bmat, const T* dmat,
+                   T* y, int ne, int p1, int q, cudaStream_t st) {
+  const int epb = affine::elems_per_block(
+      affine::warp_resident<P1, Q>(), p1, q);
+  const unsigned blocks = (unsigned)((ne + epb - 1) / epb);
+  pa_element_kernel<T, P1, Q>
+      <<<blocks, affine::kThreads,
+         affine::smem_bytes(sizeof(T), p1, q, epb), st>>>(
+          u, g6, bmat, dmat, y, ne, p1, q);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int P1, int Q>
@@ -130,25 +117,29 @@ int launch_affine(const T* u, const T* c6, const T* w3, const T* bmat,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_element(const void* u, const void* g6, const void* bmat,
-                   const void* dmat, void* y, int ne, int p1, int q,
-                   void* stream) {
-  if (ne <= 0) return 0;
-  if (!dims_ok(p1, q)) return (int)cudaErrorInvalidValue;
-  const Dims d = make_dims(p1, q);
-  const size_t smem = sizeof(T) * smem_values(d);
-  const unsigned blocks = (unsigned)((ne + d.epb - 1) / d.epb);
-  pa_element_kernel<T><<<blocks, block_threads(d), smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u), static_cast<const T*>(g6),
-      static_cast<const T*>(bmat), static_cast<const T*>(dmat),
-      static_cast<T*>(y), ne, p1, q);
-  return (int)cudaGetLastError();
-}
-
 // The orders the port's paths run (p = 1..4, q = p+1) are compiled fixed;
 // every other (p+1, q) takes the general instantiation.
+template <typename T>
+int dispatch_element(const void* u, const void* g6, const void* bmat,
+                     const void* dmat, void* y, int ne, int p1, int q,
+                     void* stream) {
+  if (ne <= 0) return 0;
+  if (!affine::orders_ok(p1, q)) return (int)cudaErrorInvalidValue;
+  const T* uu = static_cast<const T*>(u);
+  const T* gg = static_cast<const T*>(g6);
+  const T* bb = static_cast<const T*>(bmat);
+  const T* dd = static_cast<const T*>(dmat);
+  T* yy = static_cast<T*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (q == p1 ? p1 : 0) {
+    case 2: return launch_element<T, 2, 2>(uu, gg, bb, dd, yy, ne, p1, q, st);
+    case 3: return launch_element<T, 3, 3>(uu, gg, bb, dd, yy, ne, p1, q, st);
+    case 4: return launch_element<T, 4, 4>(uu, gg, bb, dd, yy, ne, p1, q, st);
+    case 5: return launch_element<T, 5, 5>(uu, gg, bb, dd, yy, ne, p1, q, st);
+    default: return launch_element<T, 0, 0>(uu, gg, bb, dd, yy, ne, p1, q, st);
+  }
+}
+
 template <typename T>
 int dispatch_affine(const void* u, const void* c6, const void* w3,
                   const void* bmat, const void* dmat, void* y, int ne, int p1,
@@ -177,14 +168,15 @@ extern "C" int pa_apply_element_f32(const void* u, const void* g6,
                                     const void* bmat, const void* dmat,
                                     void* y, int ne, int p1, int q,
                                     void* stream) {
-  return launch_element<float>(u, g6, bmat, dmat, y, ne, p1, q, stream);
+  return dispatch_element<float>(u, g6, bmat, dmat, y, ne, p1, q, stream);
 }
 
 extern "C" int pa_apply_element_f64(const void* u, const void* g6,
                                     const void* bmat, const void* dmat,
                                     void* y, int ne, int p1, int q,
                                     void* stream) {
-  return launch_element<double>(u, g6, bmat, dmat, y, ne, p1, q, stream);
+  return dispatch_element<double>(u, g6, bmat, dmat, y, ne, p1, q,
+                                  stream);
 }
 
 extern "C" int pa_apply_affine_f32(const void* u, const void* c6,

@@ -8,9 +8,9 @@ fastest), ``B``/``D`` ``[q, p+1]`` the 1D basis values and derivatives at
 the Gauss points, from which ``Jr2 = [B(x)B(x)D; B(x)D(x)B; D(x)B(x)B]``
 [3Q, (p+1)^3] is formed (:func:`grad_interp`). The metric comes in two
 forms, each a TPU kernel of ``lpfem/kernels/pa_apply.py`` and here a kernel
-of one CUDA source, ``csrc/pa_apply.cu`` (sum-factorised; the full metric on
-``csrc/element_body.cuh``, the affine one on ``csrc/affine_body.cuh``, with
-its orders fixed at compile time for p = 1..4, q = p+1):
+of one CUDA source, ``csrc/pa_apply.cu`` (sum-factorised on the column body
+of ``csrc/affine_body.cuh``, with the metric as its policy and the orders
+fixed at compile time for p = 1..4, q = p+1):
 
 - full, on curved elements: ``G6q [ne, 6Q]`` in component-major layout
   ``(xx, xy, xz, yy, yz, zz)`` (``lpfem/operators.py:544-545``) —
@@ -19,14 +19,17 @@ its orders fixed at compile time for p = 1..4, q = p+1):
   and ``w3 [Q]`` the Gauss-weight products — :func:`pa_apply_affine`, the
   port of ``pa_apply_affine_kernel`` (B3a).
 
-Each wrapper counts its launches (``LAUNCHES`` / ``LAUNCHES_AFFINE``, the
-latter also by element order p in ``LAUNCHES_AFFINE_BY_P``) and
+Each wrapper counts its launches (``LAUNCHES`` / ``LAUNCHES_AFFINE``, and
+by element order p in ``LAUNCHES_BY_P`` / ``LAUNCHES_AFFINE_BY_P``) and
 takes its plain version only because its input lies on the CPU; on a CUDA
 tensor it launches the kernel or raises. The plain versions
 (:func:`pa_apply_element_reference`, :func:`pa_apply_affine_reference`) are
 two dense matmuls with the metric between, lpfem's ``fused`` mode
 (``lpfem/operators.py:701-714``, ``_apply_G6`` / ``_apply_G6_affine``), in
-full float32 / float64 precision.
+full float32 / float64 precision. :func:`pa_apply_element_mirror` runs
+the kernel's column body stage by stage in plain PyTorch (x, y forward on
+the element's planes, z forward per column, the full metric read at
+``(qz, qy, qx)``, z, y, x back), so the CPU tests check its decomposition.
 """
 
 from __future__ import annotations
@@ -37,13 +40,15 @@ import functools
 import torch
 
 __all__ = ["grad_interp", "pa_apply_element", "pa_apply_element_reference",
-           "pa_apply_affine", "pa_apply_affine_reference"]
+           "pa_apply_element_mirror", "pa_apply_affine",
+           "pa_apply_affine_reference"]
 
 LAUNCHES = 0          # kernel launches through pa_apply_element (B3b)
+LAUNCHES_BY_P: dict[int, int] = {}          # the same by element order p
 LAUNCHES_AFFINE = 0   # kernel launches through pa_apply_affine (B3a)
 LAUNCHES_AFFINE_BY_P: dict[int, int] = {}   # the same by element order p
 
-_MAX_P1 = 8           # the kernel's shared-memory plan (csrc/pa_apply.cu)
+_MAX_P1 = 8           # the column body's reach (csrc/affine_body.cuh kMaxN)
 
 
 def grad_interp(B: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
@@ -71,6 +76,39 @@ def pa_apply_element_reference(u: torch.Tensor, G6q: torch.Tensor,
                    Gxy * gx + Gyy * gy + Gyz * gz,
                    Gxz * gx + Gyz * gy + Gzz * gz], dim=1)
     return h @ Jr2                                      # [ne, L]
+
+
+def pa_apply_element_mirror(u: torch.Tensor, G6q: torch.Tensor,
+                            B: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch ``ye`` in the column body's stages (``csrc/
+    affine_body.cuh`` with the full-metric policy): x forward on every
+    (z, y) row, y forward on every (z, qx) line, then per (qy, qx) column
+    the z contractions forward, the metric at (qz, qy, qx) and z back, then
+    y back and x back."""
+    ne = u.shape[0]
+    q, p1 = B.shape
+    U = u.reshape(ne, p1, p1, p1)                           # [e, z, y, x]
+    s1 = torch.einsum("ax,ezyx->ezya", B, U)                # B_x u
+    s2 = torch.einsum("ax,ezyx->ezya", D, U)                # D_x u
+    a0 = torch.einsum("by,ezya->ezba", B, s2)               # B_y D_x
+    a1 = torch.einsum("by,ezya->ezba", D, s1)               # D_y B_x
+    a2 = torch.einsum("by,ezya->ezba", B, s1)               # B_y B_x
+    gx = torch.einsum("cz,ezba->ecba", B, a0)               # columns (b, a)
+    gy = torch.einsum("cz,ezba->ecba", B, a1)
+    gz = torch.einsum("cz,ezba->ecba", D, a2)
+    G = G6q.reshape(ne, 6, q, q, q)                         # [e, comp, c, b, a]
+    h0 = G[:, 0] * gx + G[:, 1] * gy + G[:, 2] * gz
+    h1 = G[:, 1] * gx + G[:, 3] * gy + G[:, 4] * gz
+    h2 = G[:, 2] * gx + G[:, 4] * gy + G[:, 5] * gz
+    b0 = torch.einsum("cz,ecba->ezba", B, h0)
+    b1 = torch.einsum("cz,ecba->ezba", B, h1)
+    b2 = torch.einsum("cz,ecba->ezba", D, h2)
+    t0 = torch.einsum("by,ezba->ezya", B, b0)               # then D_x
+    t1 = (torch.einsum("by,ezba->ezya", D, b1)
+          + torch.einsum("by,ezba->ezya", B, b2))           # then B_x
+    ye = (torch.einsum("ax,ezya->ezyx", D, t0)
+          + torch.einsum("ax,ezya->ezyx", B, t1))
+    return ye.reshape(ne, p1 ** 3)
 
 
 def pa_apply_affine_reference(u: torch.Tensor, C6: torch.Tensor,
@@ -172,6 +210,7 @@ def pa_apply_element(u: torch.Tensor, G6q: torch.Tensor, B: torch.Tensor,
         raise ValueError("too many elements for the kernel's int sizes")
     ye = _launch("pa_apply_element", u, (G6q, B, D), (ne, p1, q))
     LAUNCHES += 1
+    LAUNCHES_BY_P[p1 - 1] = LAUNCHES_BY_P.get(p1 - 1, 0) + 1
     return ye
 
 

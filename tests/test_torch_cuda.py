@@ -54,9 +54,11 @@ def _space(periodic, p, nx=6):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-13)])
-@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 6])
 @pytest.mark.parametrize("periodic", [True, False])
 def test_kernel_matches_plain_version(cuda, periodic, p, dtype, tol):
+    """B1 at the orders compiled fixed (p = 1, 2, 4) and through the
+    general instantiation (p = 3, 6), bitwise equal on a second call."""
     op = SeparableLattice(_space(periodic, p, nx=5), dtype, cuda)
     gen = torch.Generator(device=cuda).manual_seed(p)
     x = torch.randn(op.dof_dims[::-1], generator=gen, device=cuda,
@@ -65,10 +67,99 @@ def test_kernel_matches_plain_version(cuda, periodic, p, dtype, tol):
         before = ksep.LAUNCHES
         y = ksep.sep_apply(x, op.bands, op.periodic, ess)
         assert ksep.LAUNCHES == before + 1
+        assert torch.equal(y, ksep.sep_apply(x, op.bands, op.periodic, ess))
         y_ref = ksep.sep_apply_reference(x, op.bands, op.periodic, ess)
         torch.cuda.synchronize()
         err = float((y - y_ref).abs().max() / y_ref.abs().max())
         assert err < tol, (ess, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("dims,periodic", [("2p+1", True),
+                                           ((267, 41, 19), True),
+                                           ((267, 41, 19), False)])
+def test_kernel_matches_plain_version_on_edge_lattices(cuda, dims, periodic,
+                                                       p, dtype, tol):
+    """B1 with random bands on Dx = 2p+1 (periodic: the tile's x halo wraps
+    more than once) and on an odd Dx whose y and z extents are no
+    multiples of the tiles (y split into two tiles)."""
+    dims = (2 * p + 1, 3, 4) if dims == "2p+1" else dims
+    gen = torch.Generator(device=cuda).manual_seed(10 + p)
+    bands = tuple(torch.randn(2 * p + 1, D, generator=gen, device=cuda,
+                              dtype=dtype)
+                  for D in (dims[0], dims[0], dims[1], dims[1], dims[2],
+                            dims[2]))
+    x = torch.randn(dims[::-1], generator=gen, device=cuda, dtype=dtype)
+    per = (periodic, False, False)
+    for ess in (False, True):
+        y = ksep.sep_apply(x, bands, per, ess)
+        assert torch.equal(y, ksep.sep_apply(x, bands, per, ess))
+        y_ref = ksep.sep_apply_reference(x, bands, per, ess)
+        torch.cuda.synchronize()
+        err = float((y - y_ref).abs().max() / y_ref.abs().max())
+        assert err < tol, (ess, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_kernel_takes_a_view_that_is_not_16_byte_aligned(cuda, p, dtype, tol):
+    """A contiguous view one element into its storage: the interior tiles'
+    16-byte copies (p = 4; p = 2 in double) would be misaligned, so the
+    kernel copies by element, to the same bits as on an aligned copy."""
+    dims = (64, 9, 6)
+    n = dims[0] * dims[1] * dims[2]
+    gen = torch.Generator(device=cuda).manual_seed(20 + p)
+    bands = tuple(torch.randn(2 * p + 1, D, generator=gen, device=cuda,
+                              dtype=dtype)
+                  for D in (dims[0], dims[0], dims[1], dims[1], dims[2],
+                            dims[2]))
+    x = torch.randn(n + 1, generator=gen, device=cuda,
+                    dtype=dtype)[1:].view(dims[::-1])
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    for per in (True, False):
+        y = ksep.sep_apply(x, bands, (per, False, False))
+        y_ref = ksep.sep_apply_reference(x, bands, (per, False, False))
+        y_aligned = ksep.sep_apply(x.clone(), bands, (per, False, False))
+        torch.cuda.synchronize()
+        err = float((y - y_ref).abs().max() / y_ref.abs().max())
+        assert err < tol, (per, err)
+        assert torch.equal(y, y_aligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", range(1, ksep.MAX_P + 1))
+def test_entry_takes_the_wrappers_tiles_and_shared_memory(cuda, p, dtype):
+    """Every order the wrapper accepts launches with the tiles and shared
+    memory bytes that the Python side computes, and the C entry refuses
+    bytes other than its own layout's."""
+    dims = (2 * p + 3, 5, 4)
+    gen = torch.Generator(device=cuda).manual_seed(30 + p)
+    bands = tuple(torch.randn(2 * p + 1, D, generator=gen, device=cuda,
+                              dtype=dtype)
+                  for D in (dims[0], dims[0], dims[1], dims[1], dims[2],
+                            dims[2]))
+    x = torch.randn(dims[::-1], generator=gen, device=cuda, dtype=dtype)
+    per = (True, False, False)
+    y = ksep.sep_apply(x, bands, per)
+    y_ref = ksep.sep_apply_reference(x, bands, per)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    assert float((y - y_ref).abs().max() / y_ref.abs().max()) < tol
+    itemsize = x.element_size()
+    tiles = ksep.choose_tiles(dims, p, itemsize)
+    smem = ksep.tile_smem_bytes(p, tiles, itemsize)
+    for wrong in (smem - itemsize, smem + 4):
+        rc = ksep._entry(dtype)(x.data_ptr(), y.data_ptr(),
+                                *(c.data_ptr() for c in bands), *dims, p, 1,
+                                0, *tiles, wrong,
+                                torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, wrong
 
 
 @pytest.mark.cuda
@@ -105,14 +196,17 @@ def test_gpu_run_matches_cpu_run(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-13)])
-@pytest.mark.parametrize("p", [1, 2, 4])
-def test_element_kernel_matches_plain_version(cuda, p, dtype, tol):
+@pytest.mark.parametrize("p,dq", [(1, 1), (2, 1), (3, 1), (4, 1), (2, 2),
+                                  (5, 1)])
+def test_element_kernel_matches_plain_version(cuda, p, dq, dtype, tol):
     """B3b on the small cylinder tank's real metric, and on random metric
-    with an element count (37) that is no multiple of any block size."""
+    with an element count (37) that is no multiple of any block size, at
+    q = p + dq: the orders compiled fixed (p = 1..4, q = p+1) and the
+    general instantiation (q = p+2; p+1 = 6, an element over two warps)."""
     mesh = make_half_cylinder_tank(n_theta=12, n_r=6, nz=1, geom_order=p)
-    op = ElementLaplace(CurvedLatticeSpace(mesh, p), dtype, cuda)
+    op = ElementLaplace(CurvedLatticeSpace(mesh, p), dtype, cuda, q=p + dq)
     gen = torch.Generator(device=cuda).manual_seed(p)
-    L, Q6 = op.G6q.shape[1] // 6, op.G6q.shape[1]
+    L, Q6 = (p + 1) ** 3, op.G6q.shape[1]
     cases = [(torch.randn(op.G6q.shape[0], L, generator=gen, device=cuda,
                           dtype=dtype), op.G6q),
              (torch.randn(37, L, generator=gen, device=cuda, dtype=dtype),
@@ -225,6 +319,30 @@ def test_lattice_apply_is_two_kernels_and_no_memset_or_copy(cuda, p):
     assert 1 <= len(device) <= 2, device
     assert 1 <= sum(device.values()) <= 20, device
     assert all("lattice_affine" in k for k in device), device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 4])
+def test_sep_apply_is_one_kernel_and_no_memset_or_copy(cuda, p):
+    """B1 calls, profiled: one kernel per call on the device and no memset
+    or memcpy (ten calls after a spin kernel, as for B2)."""
+    from torch.profiler import ProfilerActivity, profile
+    op = SeparableLattice(_space(True, p, nx=8), torch.float32, cuda)
+    x = torch.randn(op.space.n_dofs, device=cuda)
+    op.constrained_apply_top(x)                      # build and load first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2_000_000)      # the window's first events can drop
+        for _ in range(10):
+            op.constrained_apply_top(x)
+        torch.cuda.synchronize()
+    device = {e.key: e.count for e in prof.key_averages()
+              if e.device_time_total > 0 and "spin_kernel" not in e.key}
+    moves = [k for k in device if "memset" in k.lower() or "memcpy" in k.lower()]
+    assert not moves, device
+    assert len(device) == 1, device
+    assert 1 <= sum(device.values()) <= 10, device
+    assert all("sep_tile_kernel" in k for k in device), device
 
 
 @pytest.mark.cuda
