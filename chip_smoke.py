@@ -19,11 +19,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ss.cpp path and the four of path C. At the ss.cpp lattices: device time
      per apply from torch.profiler, each kernel's mean per recorded launch,
      the activities per call (one kernel, no memset or copy), per call the
-     median of 5 chains of 30 applies timed with CUDA events, the time of
-     the three-pass kernel it replaced in brackets, the bound per order, and
-     the cuSPARSE SpMV of the assembled matrix at p = 4 (assembled on the
-     card from the element matrices of the same tank), p = 2 and p = 1 with
-     B1's ratio to it.
+     median of 5 chains of 30 applies timed with CUDA events, the bound per
+     order, and the cuSPARSE SpMV of the assembled matrix at p = 4
+     (assembled on the card from the element matrices of the same tank),
+     p = 2 and p = 1 with B1's ratio to it.
    - ``pa_apply_element`` (B3b, on the column body; float and double) on
      the small cylinder tank at p = 1..4 with q = p+1 (compiled fixed) and
      (p, q) = (2, 4), (5, 6) (the general instantiation), real and random
@@ -49,17 +48,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      three-step route it fuses (gather + B3a + fold) and beside B1 on the
      unsheared lattice of the same size, and the cuSPARSE SpMV of the
      assembled operator at every level, with B2's ratio to it.
-   - ``sep_apply_ds`` (B4) on double-single pairs of random float64 values
-     (normal, and with magnitudes spread over 1e-8..1e8; p = 1, 2, 4,
-     periodic and finite x, an odd Dx, ess_top on and off, and the ss.cpp
-     fine lattice, the only level the DS outer loop runs at) against
-     ``sep_apply_ds_reference``, <= 1e-14 of max|y| and whether bit for
-     bit, and against float64 B1 on the pair's value, <= 1e-13 relative in
-     the 2-norm (float32 B1's error printed beside it); at the fine lattice
-     device and per-call time, the plain version's, the bound (bytes, and
-     the operations counted from the kernel), and float64 B1 and its
-     cuSPARSE SpMV as the comparators (no PyTorch call computes a
-     double-single apply).
+   - ``sep_apply_ds`` (B4, one fused launch per apply) on double-single
+     pairs of random float64 values (normal, and with magnitudes spread
+     over 1e-8..1e8) against ``sep_apply_ds_reference``, bit for bit (and
+     <= 1e-14 of max|y|), twice on one input for the same bits, and against
+     float64 B1 on the pair's value, <= 1e-13 relative in the 2-norm
+     (float32 B1's error printed beside it): p = 1, 2, 4 (compiled fixed)
+     and 3, 6 (the general instantiation) on periodic and finite x, an odd
+     Dx, edge lattices with random bands (Dx = 2p+1 periodic, narrower than
+     a tile below p = 4; an odd Dx with Dy and Dz no multiples of the
+     tiles), a view of both streams 4 bytes into their storage (the same
+     bits as an aligned copy), ess_top on and off, and the ss.cpp fine
+     lattice, the only level the DS outer loop runs at. There: device and
+     per-call time, the activities per call (one kernel, no memset or
+     copy), the plain version's time, the bound (bytes, and the float32
+     instructions counted from the kernel at the card's issue rate), and
+     float64 B1 and its cuSPARSE SpMV as the comparators (no PyTorch call
+     computes a double-single apply).
 3. The ss.cpp path: ``Problem(cfg, device="cuda")`` on the reference's
    strong-scaling protocol (``scaling_base``, 2 refinements, order 4, mixed
    precision, r.z <= rz0*1e-16, maxit 300, p-multigrid, Chebyshev degree 4;
@@ -108,7 +113,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``hi_apply="ds"`` and phase 3's lmax (``fso._ds_op`` must be set): a cold
    solve that must converge; one warm-up step, then 10 RK4 steps = 40
    solves with the launch counts set to 0 just before and read just after
-   (requires sep_apply_ds launches, every solve converged, a finite state);
+   (requires sep_apply_ds launches, every solve converged, a finite state;
+   B4 calls per RK4 step and B4 kernels in the profiled step printed);
    the 40-step accuracy run, whose nodal eta error must stay below 0.1 H,
    within 1 % of phase 3's and whose eta within 1e-5 max|eta| of phase 3's.
 
@@ -160,12 +166,19 @@ DS_TOL_F64 = 1e-13             # B4 vs float64 B1, relative 2-norm
 # element contractions are small matrix products).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+# Float32 instructions per second: 128 per SM per clock. An FADD or FMUL
+# takes the issue slot of an FFMA, which PEAK_FLOPS counts as two flops, so
+# a kernel of adds and multiplies (B4's error-free transforms) is bound by
+# its instructions at half the flop rate.
+FP32_ISSUE_PER_S = PEAK_FLOPS["float32"] / 2
 
 
-def _bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    """(ms, "bytes" or "operations"): the least time the card could take."""
+def _bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    ``nbytes`` of memory traffic and ``ops`` operations at ``rate`` per
+    second (``PEAK_FLOPS[dtype]`` for flops)."""
     tb = nbytes / HBM_BYTES_PER_S
-    tf = flops / PEAK_FLOPS[dtype]
+    tf = ops / rate
     return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
@@ -514,7 +527,8 @@ def phase_sep_apply(report: dict) -> dict:
             # kernel's 7(2p+1) multiply-adds per dof
             nbytes = x.element_size() * (2 * n + 2 * (2 * p + 1)
                                          * sum(sp.dof_dims))
-            bound, by = _bound(nbytes, 2 * 7 * (2 * p + 1) * n, dt)
+            bound, by = _bound(nbytes, 2 * 7 * (2 * p + 1) * n,
+                               PEAK_FLOPS[dt])
             row = dict(level=li, p=p, dims=dims, dtype=dt, ess_top=ess,
                        ms=dev if dev is not None else ms, call_ms=ms,
                        device_ms=dev, plain_ms=plain, max_abs_err=abs_err,
@@ -675,7 +689,7 @@ def phase_pa_apply(report: dict) -> dict:
             q = p + 1
             bound, by = _bound(
                 u.element_size() * (2 * ne * L + ne * Q6 + 2 * q * (p + 1)),
-                _element_flops(ne, p + 1, q), dt)
+                _element_flops(ne, p + 1, q), PEAK_FLOPS[dt])
             row = dict(p=p, ne=ne, dtype=dt,
                        ms=dev if dev is not None else ms, call_ms=ms,
                        device_ms=dev, launch_ms=act["launch_ms"],
@@ -861,7 +875,8 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
                 raise AssertionError(f"B3a calls ran {act}")
             plain_ms = _time_chain(lambda a: pa_apply_affine_reference(
                 a, op.C6, op.w3, op.B, op.D), sets[:1])
-            bound, by = _bound(size * (2 * ne * L + tables), flops, dt)
+            bound, by = _bound(size * (2 * ne * L + tables), flops,
+                               PEAK_FLOPS[dt])
             row = dict(p=p, ne=ne, dtype=dt, ms=dev if dev is not None else ms,
                        call_ms=ms, device_ms=dev, plain_ms=plain_ms,
                        max_abs_err=abs_err, bound_ms=bound, bound_by=by,
@@ -930,7 +945,8 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
                                          sep.bands, sep.periodic, ess)
                 b1_ms = _time_chain(b1, sets)
                 b1_dev = _device_ms(b1, sets, B1_KERNEL)
-                bound, by = _bound(size * (2 * n + tables), flops, dt)
+                bound, by = _bound(size * (2 * n + tables), flops,
+                                   PEAK_FLOPS[dt])
                 row = dict(p=p, ne=ne, dofs=n, dtype=dt, ess_top=ess,
                            ms=dev if dev is not None else ms, call_ms=ms,
                            device_ms=dev, plain_ms=plain_ms,
@@ -983,11 +999,11 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
     return heads["pa_apply_affine"], heads["lattice_affine_apply"]
 
 
-def _ds_operations(dims, p: int, periodic_x: bool, ess_top: bool) -> int:
-    """Float32 operations of one B4 apply (``csrc/sep_apply_ds.cu``, fma
-    counted as 2), for the terms this lattice has: 15 per band term, 3 per
-    normalisation, 11 per DS addition; pass x holds 2 accumulators, y 3,
-    z 2; ess_top skips the top plane's terms in passes x and z."""
+def _ds_instructions(dims, p: int, periodic_x: bool, ess_top: bool) -> int:
+    """Float32 instructions of one B4 apply (``csrc/sep_apply_ds.cu``, an
+    fma counted as one), for the terms this lattice has: 14 per band term,
+    3 per normalisation, 11 per DS addition; x holds 2 accumulators, y 3,
+    z 2; ess_top skips the top plane's terms in x and z."""
     Dx, Dy, Dz = dims
 
     def terms(D, per):            # valid (i, s) pairs along one line
@@ -999,15 +1015,16 @@ def _ds_operations(dims, p: int, periodic_x: bool, ess_top: bool) -> int:
     x_terms = terms(Dx, periodic_x) * Dy * (Dz - (1 if ess_top else 0))
     y_terms = terms(Dy, False) * Dx * Dz
     z_terms = (terms(Dz, False) - (p + 1 if ess_top else 0)) * plane
-    return (15 * (2 * x_terms + 3 * y_terms + 2 * z_terms)
+    return (14 * (2 * x_terms + 3 * y_terms + 2 * z_terms)
             + 6 * n + (3 * 3 + 11) * n + (2 * 3 + 11) * (n - top))
 
 
 def phase_sep_apply_ds(report: dict) -> dict:
     import torch
-    from lpfem_torch.ds import SeparableDS, ds_from_f64, ds_to_f64
+    from lpfem_torch.ds import DS, SeparableDS, ds_from_f64, ds_to_f64
     from lpfem_torch.kernels.sep_apply import sep_apply
-    from lpfem_torch.kernels.sep_apply_ds import (sep_apply_ds,
+    from lpfem_torch.kernels.sep_apply_ds import (choose_ds_tiles,
+                                                  sep_apply_ds,
                                                   sep_apply_ds_reference)
     from lpfem_torch.operators import SeparableLattice
     from lpfem_torch.space import LatticeSpace, grid_lines
@@ -1017,57 +1034,112 @@ def phase_sep_apply_ds(report: dict) -> dict:
     def rel2(y, y_ref):
         return float(torch.linalg.norm(y - y_ref) / torch.linalg.norm(y_ref))
 
-    def check(space, ess, kind, label):
-        """B4 on a DS pair from random float64 values (``kind`` "normal", or
-        "wide": magnitudes spread over 1e-8..1e8) against its plain version
-        (of max|y|, and bit for bit) and against float64 B1 on the pair's
-        value (relative 2-norm); float32 B1 beside it."""
-        op = SeparableLattice(space, torch.float64, "cuda")
-        op32 = SeparableLattice(space, torch.float32, "cuda")
-        dsop = SeparableDS(op)
-        shape = space.dof_dims[::-1]
+    def same(a, b):
+        return bool(torch.equal(a.hi, b.hi) and torch.equal(a.lo, b.lo))
+
+    def rand_pair(shape, kind):
+        """A DS pair of random float64 values: "normal", or "wide" with
+        magnitudes spread over 1e-8..1e8."""
         x64 = torch.randn(shape, generator=gen, device="cuda",
                           dtype=torch.float64)
         if kind == "wide":
             x64 = x64 * 10.0 ** (16.0 * torch.rand(
                 shape, generator=gen, device="cuda",
                 dtype=torch.float64) - 8.0)
-        x = ds_from_f64(x64)
-        y = sep_apply_ds(x.hi, x.lo, dsop.bands, op.periodic, ess)
-        y_ref = sep_apply_ds_reference(x.hi, x.lo, dsop.bands, op.periodic,
-                                       ess)
+        return ds_from_f64(x64)
+
+    def check(x, dsb, b64, b32, periodic, ess, kind, label):
+        """B4 on the DS pair ``x`` against its plain version, bit for bit
+        (and of max|y|), twice on one input for the same bits, and against
+        float64 B1 with the float64 bands ``b64`` on the pair's value
+        (relative 2-norm); float32 B1 beside it."""
+        y = sep_apply_ds(x.hi, x.lo, dsb, periodic, ess)
+        repeat = same(y, sep_apply_ds(x.hi, x.lo, dsb, periodic, ess))
+        y_ref = sep_apply_ds_reference(x.hi, x.lo, dsb, periodic, ess)
         abs_err, rel = _rel_err(ds_to_f64(y), ds_to_f64(y_ref))
-        bitwise = bool(torch.equal(y.hi, y_ref.hi)
-                       and torch.equal(y.lo, y_ref.lo))
-        y64 = sep_apply(ds_to_f64(x), op.bands, op.periodic, ess)
+        bitwise = same(y, y_ref)
+        y64 = sep_apply(ds_to_f64(x), b64, periodic, ess)
         rel64 = rel2(ds_to_f64(y), y64)
-        rel32 = rel2(sep_apply(x.hi, op32.bands, op.periodic, ess).double(),
-                     y64)
-        print(f"[2] sep_apply_ds {label:40s} {kind:6s} ess_top={int(ess)} "
-              f"vs plain {rel:.2e} (bitwise {bitwise}), vs float64 B1 "
-              f"{rel64:.2e} (float32 B1 {rel32:.2e})")
-        if not (rel <= DS_TOL_PLAIN and rel64 <= DS_TOL_F64):
+        rel32 = rel2(sep_apply(x.hi.contiguous(), b32, periodic,
+                               ess).double(), y64)
+        print(f"[2] sep_apply_ds {label:50s} {kind:6s} ess_top={int(ess)} "
+              f"vs plain {rel:.2e} (bitwise {bitwise}, repeat bitwise "
+              f"{repeat}), vs float64 B1 {rel64:.2e} (float32 B1 "
+              f"{rel32:.2e})")
+        if not (bitwise and repeat and rel <= DS_TOL_PLAIN
+                and rel64 <= DS_TOL_F64):
             raise AssertionError(f"sep_apply_ds disagrees: {label} {kind} "
-                                 f"ess_top={ess}: {rel:.3e} / {rel64:.3e}")
+                                 f"ess_top={ess}: {rel:.3e} / {rel64:.3e}, "
+                                 f"bitwise {bitwise}, repeat {repeat}")
         return dict(label=label, kind=kind, ess_top=ess, rel_err_plain=rel,
-                    bitwise=bitwise, rel_err_f64=rel64, rel_err_f32_b1=rel32,
-                    max_abs_err=abs_err), x, dsop
+                    bitwise=bitwise, repeat_bitwise=repeat,
+                    rel_err_f64=rel64, rel_err_f32_b1=rel32,
+                    max_abs_err=abs_err), y
+
+    def check_space(space, ess, kind, label):
+        op = SeparableLattice(space, torch.float64, "cuda")
+        op32 = SeparableLattice(space, torch.float32, "cuda")
+        dsop = SeparableDS(op)
+        x = rand_pair(space.dof_dims[::-1], kind)
+        row, _ = check(x, dsop.bands, op.bands, op32.bands, op.periodic, ess,
+                       kind, label)
+        return row, x, dsop
+
+    def random_bands(dims, p):
+        b64 = _random_bands(dims, p, gen, torch.float64)
+        return (tuple(ds_from_f64(b) for b in b64), b64,
+                tuple(b.float() for b in b64))
 
     lz = 1.0 / (2 * 3.141592653589793)
+    # p = 1, 2, 4 compiled fixed; 3 and 6 the general instantiation
     small = [LatticeSpace((grid_lines(nx, lx), grid_lines(2, 0.1),
                            grid_lines(3, lz)), p, (per, False, False))
              for per, nx, lx in ((True, 6, 1.0), (False, 5, 12.0))
-             for p in (1, 2, 4)]
+             for p in (1, 2, 3, 4, 6)]
     small.append(LatticeSpace((grid_lines(5, 1.0), grid_lines(2, 0.1),
                                grid_lines(2, lz)), 1, (True, False, False)))
     rows = []
     for sp in small:
         for ess in (False, True):
             for kind in ("normal", "wide"):
-                rows.append(check(sp, ess, kind, (
+                rows.append(check_space(sp, ess, kind, (
                     f"Dx={sp.dof_dims[0]} Dy={sp.dof_dims[1]} Dz="
                     f"{sp.dof_dims[2]} p={sp.p} "
                     f"{'periodic' if sp.periodic[0] else 'finite'}"))[0])
+    # edge lattices, random bands: Dx = 2p+1 periodic (narrower than a
+    # tile below p = 4); an odd Dx whose y and z extents are no multiples of
+    # the tiles (y split in two tiles)
+    for p in (1, 2, 3, 4, 6):
+        for dims, per in (((2 * p + 1, 3, 4), True), ((267, 41, 19), True),
+                          ((267, 41, 19), False)):
+            dsb, b64, b32 = random_bands(dims, p)
+            x = rand_pair(dims[::-1], "normal")
+            for ess in (False, True):
+                rows.append(check(
+                    x, dsb, b64, b32, (per, False, False), ess, "normal",
+                    f"{'x'.join(map(str, dims))} p={p} "
+                    f"{'periodic' if per else 'finite'} tiles "
+                    f"{choose_ds_tiles(dims, p)[:3]}")[0])
+    # a contiguous view one element into its storage (both streams): the
+    # interior tiles' 16-byte copies would be misaligned, so the kernel
+    # copies by value, to the bits of an aligned copy
+    dims = (64, 9, 6)
+    n = dims[0] * dims[1] * dims[2]
+    for p in (1, 2, 4):
+        dsb, b64, b32 = random_bands(dims, p)
+        buf = rand_pair((n + 1,), "normal")
+        x = DS(buf.hi[1:].view(dims[::-1]), buf.lo[1:].view(dims[::-1]))
+        assert x.hi.data_ptr() % 16 and x.lo.data_ptr() % 16
+        for per in (True, False):
+            row, y = check(x, dsb, b64, b32, (per, False, False), False,
+                           "normal", f"64x9x6 p={p} view 4 bytes in")
+            aligned = sep_apply_ds(x.hi.clone(), x.lo.clone(), dsb,
+                                   (per, False, False))
+            row["aligned_bitwise"] = same(y, aligned)
+            if not row["aligned_bitwise"]:
+                raise AssertionError(f"sep_apply_ds on a misaligned view "
+                                     f"differs from an aligned copy: p={p}")
+            rows.append(row)
 
     # the ss.cpp fine lattice, the only level the DS outer runs at
     fine = _main_lattices()[0]
@@ -1078,35 +1150,53 @@ def phase_sep_apply_ds(report: dict) -> dict:
     head = None
     for ess in (True, False):
         for kind in ("normal", "wide"):
-            row, x, dsop = check(fine, ess, kind, f"ss.cpp fine p=4 {dims}")
+            row, x, dsop = check_space(fine, ess, kind,
+                                       f"ss.cpp fine p=4 {dims}")
             rows.append(row)
         fn = lambda h, lo: sep_apply_ds(h, lo, dsop.bands, dsop.periodic,
                                         ess)
         ms = _time_chain(fn, [(x.hi, x.lo)])
-        dev = _device_ms(fn, [(x.hi, x.lo)],
-                         ("ds_pass_x", "ds_pass_y", "ds_pass_z"))
+        acts = _profile_calls(fn, [(x.hi, x.lo)])
+        dev = _device_ms(fn, [(x.hi, x.lo)], B4_KERNEL, acts)
+        act = _per_call(acts)
+        print(f"[2] sep_apply_ds ess_top={int(ess)} on the device: "
+              f"{act['kernels_per_call']:.2f} kernels per call recorded "
+              f"({act['launch_ms']:.4f} ms per launch), {act['memsets']} "
+              f"memsets, {act['copies']} copies")
+        if (len(act["kernels"]) != 1 or act["kernels_per_call"] > 1
+                or act["memsets"] or act["copies"]):
+            raise AssertionError(f"B4 calls ran {act} (one kernel, no "
+                                 "memset or copy)")
         plain = (_time_chain(lambda h, lo: sep_apply_ds_reference(
             h, lo, dsop.bands, dsop.periodic, ess), [(x.hi, x.lo)])
             if ess else None)
         n, p = fine.n_dofs, fine.p
         # xh, xl read once, yh, yl written once, the twelve band tables
         nbytes = 4 * (4 * n + 4 * (2 * p + 1) * sum(fine.dof_dims))
-        ops = _ds_operations(fine.dof_dims, p, fine.periodic[0], ess)
-        bound, by = _bound(nbytes, ops, "float32")
+        ins = _ds_instructions(fine.dof_dims, p, fine.periodic[0], ess)
+        bound, by = _bound(nbytes, ins, FP32_ISSUE_PER_S)
         ref = b1[("float64", True)]
         row = dict(p=p, dims=dims, ess_top=ess, ms=dev if dev is not None
                    else ms, call_ms=ms, device_ms=dev, plain_ms=plain,
                    max_abs_err=max(r["max_abs_err"] for r in rows),
-                   bound_ms=bound, bound_by=by, operations=ops, bytes=nbytes,
-                   library_ms=ref["ms"], spmv_f64_ms=ref["library_ms"])
+                   bound_ms=bound, bound_by=by,
+                   bound_counts="float32 instructions (an fma as one) at "
+                   f"{FP32_ISSUE_PER_S:.3g}/s",
+                   instructions=ins, bytes=nbytes, library_ms=None,
+                   b1_f64_ms=ref["ms"], spmv_f64_ms=ref["library_ms"],
+                   launch_ms=act["launch_ms"],
+                   kernels_per_call_recorded=act["kernels_per_call"],
+                   launches_per_call=len(act["kernels"]),
+                   tiles=choose_ds_tiles(fine.dof_dims, p))
         times.append(row)
-        print(f"[2] time sep_apply_ds p={p} {dims} ess_top={int(ess)}: "
-              f"kernel {row['ms']:.4f} ms on the device ({ms:.4f} ms per "
-              f"call, host included), plain "
+        print(f"[2] time sep_apply_ds p={p} {dims} ess_top={int(ess)} tiles "
+              f"{row['tiles'][:3]}: kernel {row['ms']:.4f} ms on the device "
+              f"({ms:.4f} ms per call, host included), plain "
               f"{'%.4f ms' % plain if plain else 'not timed'}, bound "
-              f"{bound:.4f} ms ({by}; {ops} operations, {nbytes} bytes); "
-              f"float64 B1 {ref['ms']:.4f} ms, float64 cuSPARSE SpMV "
-              f"{ref['library_ms']:.4f} ms")
+              f"{bound:.4f} ms ({by}: {ins} float32 instructions at "
+              f"{FP32_ISSUE_PER_S:.3g}/s, {nbytes} bytes); no PyTorch call "
+              f"computes a DS apply: float64 B1 {ref['ms']:.4f} ms, float64 "
+              f"cuSPARSE SpMV {ref['library_ms']:.4f} ms")
         if ess:
             head = row
     report["sep_apply_ds_checks"] = rows
@@ -1115,8 +1205,9 @@ def phase_sep_apply_ds(report: dict) -> dict:
 
 
 B1_KERNEL = ("sep_tile_kernel",)
+B4_KERNEL = ("ds_tile_kernel",)
 
-_CATEGORIES = (("B4 sep_apply_ds", ("ds_pass_x", "ds_pass_y", "ds_pass_z")),
+_CATEGORIES = (("B4 sep_apply_ds", B4_KERNEL),
                ("B3b pa_apply_element", ("pa_element_kernel",)),
                ("B3a pa_apply_affine", ("pa_affine_kernel",)),
                ("B2 lattice_affine_apply", ("lattice_affine_kernel",
@@ -1671,10 +1762,15 @@ def phase_ds_path(report: dict, ss: dict) -> int:
     prof = _profile_step(prob, (y, phi), t)
     prof["busy_share_unprofiled"] = prof["device_ms"] / (1e3 * wall / N_STEPS)
     _print_profile("[6]", prof)
+    b4 = prof["by_category"]["B4 sep_apply_ds"]
     print(f"[6] device time over the unprofiled step wall "
           f"{prof['busy_share_unprofiled']:.3f} (float64 outer, phase 3: "
-          f"{ss['busy']:.3f} profiled)")
+          f"{ss['busy']:.3f} profiled); B4: "
+          f"{counts['sep_apply_ds'] / N_STEPS:.1f} calls per RK4 step in the "
+          f"timed run, {b4['kernels']} kernels ({b4['ms']:.3f} ms) in the "
+          f"profiled step")
     report["ds_path"]["profile"] = prof
+    report["ds_path"]["b4_calls_per_step"] = counts["sep_apply_ds"] / N_STEPS
     return counts["sep_apply_ds"]
 
 
@@ -1748,7 +1844,10 @@ def main() -> int:
         dict(name="sep_apply_ds", route="cuda",
              source="lpfem_torch/csrc/sep_apply_ds.cu",
              replaces="lpfem/kernels/sep_apply_ds.py:291",
-             launches=ds_launches, spmv_f64_ms=ds["spmv_f64_ms"],
+             launches=ds_launches,
+             launches_per_call=ds["launches_per_call"], redesigned=True,
+             bound_counts=ds["bound_counts"], b1_f64_ms=ds["b1_f64_ms"],
+             spmv_f64_ms=ds["spmv_f64_ms"],
              **{k: ds[k] for k in keys})]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

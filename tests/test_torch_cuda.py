@@ -403,7 +403,8 @@ def test_gpu_general_mesh_run_matches_cpu_run(cuda, path, dtype, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,periodic", [(2, True), (4, False)])
+@pytest.mark.parametrize("p,periodic", [(1, True), (2, True), (3, False),
+                                        (4, False), (6, True)])
 def test_ds_kernel_matches_plain_version_and_float64(cuda, p, periodic):
     op = SeparableLattice(_space(periodic, p, nx=5), torch.float64, cuda)
     dsop = SeparableDS(op)
@@ -422,6 +423,126 @@ def test_ds_kernel_matches_plain_version_and_float64(cuda, p, periodic):
         rel = float(torch.linalg.norm(ds_to_f64(y) - y64)
                     / torch.linalg.norm(y64))
         assert rel < 1e-13, (ess, rel)
+
+
+def _ds_bands(dims, p, gen, device):
+    """Random float64 bands for the lattice ``dims`` and their DS pairs."""
+    b64 = tuple(torch.randn(2 * p + 1, D, generator=gen, device=device,
+                            dtype=torch.float64)
+                for D in (dims[0], dims[0], dims[1], dims[1], dims[2],
+                          dims[2]))
+    return tuple(ds_from_f64(b) for b in b64), b64
+
+
+def _same(a, b):
+    return torch.equal(a.hi, b.hi) and torch.equal(a.lo, b.lo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("dims,periodic", [("2p+1", True),
+                                           ((267, 41, 19), True),
+                                           ((267, 41, 19), False)])
+def test_ds_kernel_matches_plain_version_on_edge_lattices(cuda, dims,
+                                                          periodic, p):
+    """B4 with random bands on Dx = 2p+1 (periodic, narrower than a tile
+    below p = 4) and on an odd Dx whose y and z extents are no multiples of
+    the tiles (y split into two tiles): bit for bit with the plain version,
+    the same bits on a second call, 1e-13 (2-norm) of float64 B1."""
+    dims = (2 * p + 1, 3, 4) if dims == "2p+1" else dims
+    gen = torch.Generator(device=cuda).manual_seed(40 + p)
+    dsb, b64 = _ds_bands(dims, p, gen, cuda)
+    x = ds_from_f64(torch.randn(dims[::-1], generator=gen, device=cuda,
+                                dtype=torch.float64))
+    per = (periodic, False, False)
+    for ess in (False, True):
+        y = kds.sep_apply_ds(x.hi, x.lo, dsb, per, ess)
+        assert _same(y, kds.sep_apply_ds(x.hi, x.lo, dsb, per, ess))
+        assert _same(y, kds.sep_apply_ds_reference(x.hi, x.lo, dsb, per,
+                                                   ess))
+        y64 = ksep.sep_apply(ds_to_f64(x), b64, per, ess)
+        rel = float(torch.linalg.norm(ds_to_f64(y) - y64)
+                    / torch.linalg.norm(y64))
+        assert rel < 1e-13, (ess, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_ds_kernel_takes_views_that_are_not_16_byte_aligned(cuda, p):
+    """Contiguous views one element into their storage, of one stream or
+    both: the interior tiles' 16-byte copies (p = 2, 4) would be
+    misaligned, so the kernel copies by value, to the bits of the plain
+    version and of an aligned copy."""
+    dims = (64, 9, 6)
+    n = dims[0] * dims[1] * dims[2]
+    gen = torch.Generator(device=cuda).manual_seed(50 + p)
+    dsb, _ = _ds_bands(dims, p, gen, cuda)
+    buf = ds_from_f64(torch.randn(n + 1, generator=gen, device=cuda,
+                                  dtype=torch.float64))
+    sh = dims[::-1]
+    off = DS(buf.hi[1:].view(sh), buf.lo[1:].view(sh))
+    on = DS(buf.hi[:-1].view(sh), buf.lo[:-1].view(sh))
+    assert off.hi.data_ptr() % 16 and off.lo.data_ptr() % 16
+    for xh, xl in ((off.hi, on.lo), (on.hi, off.lo), (off.hi, off.lo)):
+        for per in ((True, False, False), (False, False, False)):
+            y = kds.sep_apply_ds(xh, xl, dsb, per)
+            assert _same(y, kds.sep_apply_ds_reference(xh, xl, dsb, per))
+            assert _same(y, kds.sep_apply_ds(xh.clone(), xl.clone(), dsb,
+                                             per))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", range(1, kds.MAX_P + 1))
+def test_ds_entry_takes_the_wrappers_tiles_and_shared_memory(cuda, p):
+    """Every order the wrapper accepts launches with the tiles and shared
+    memory bytes that the Python side computes (bit for bit with the plain
+    version), and the C entry refuses other bytes and other tile widths."""
+    dims = (2 * p + 3, 5, 4)
+    gen = torch.Generator(device=cuda).manual_seed(60 + p)
+    dsb, _ = _ds_bands(dims, p, gen, cuda)
+    x = ds_from_f64(torch.randn(dims[::-1], generator=gen, device=cuda,
+                                dtype=torch.float64))
+    per = (True, False, False)
+    y = kds.sep_apply_ds(x.hi, x.lo, dsb, per, True)
+    assert _same(y, kds.sep_apply_ds_reference(x.hi, x.lo, dsb, per, True))
+    tiles = kds.choose_ds_tiles(dims, p)
+    smem = kds.ds_tile_smem_bytes(p, tiles)
+    ptrs = [c.data_ptr() for band in dsb for c in band]
+    stream = torch.cuda.current_stream().cuda_stream
+    for t, bytes_ in ((tiles, smem - 4), (tiles, smem + 16),
+                      ((4, *tiles[1:]), smem)):
+        rc = kds._entry()(x.hi.data_ptr(), x.lo.data_ptr(), y.hi.data_ptr(),
+                          y.lo.data_ptr(), *ptrs, *dims, p, 1, 1, *t,
+                          bytes_, stream)
+        assert rc != 0, (t, bytes_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 4])
+def test_ds_apply_is_one_kernel_and_no_memset_or_copy(cuda, p):
+    """B4 calls through ``SeparableDS``, profiled: one kernel per call on
+    the device and no memset or memcpy (ten calls after a spin kernel, as
+    for B1)."""
+    from torch.profiler import ProfilerActivity, profile
+    dsop = SeparableDS(SeparableLattice(_space(True, p, nx=8), torch.float64,
+                                        cuda))
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    x = ds_from_f64(torch.randn(int(np.prod(dsop.dof_dims)), generator=gen,
+                                device=cuda, dtype=torch.float64))
+    dsop.constrained_apply_top(x)                    # build and load first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2_000_000)      # the window's first events can drop
+        for _ in range(10):
+            dsop.constrained_apply_top(x)
+        torch.cuda.synchronize()
+    device = {e.key: e.count for e in prof.key_averages()
+              if e.device_time_total > 0 and "spin_kernel" not in e.key}
+    moves = [k for k in device if "memset" in k.lower() or "memcpy" in k.lower()]
+    assert not moves, device
+    assert len(device) == 1, device
+    assert 1 <= sum(device.values()) <= 10, device
+    assert all("ds_tile_kernel" in k for k in device), device
 
 
 @pytest.mark.cuda
