@@ -12,8 +12,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    <= 1e-13, float <= 1e-5.
    - ``sep_apply`` (B1, one fused launch per apply; float and double) against
      ``sep_apply_reference``, and twice on one input for bitwise equality:
-     p = 1, 2, 4 (compiled fixed) and 3, 6 (the general instantiation) on
-     periodic and non-periodic tanks and on edge lattices with random bands
+     p = 1, 2, 4 (compiled fixed) and 3, 5..10 (the general instantiation)
+     on periodic and non-periodic tanks, and on the stationary study's tank
+     (8p x (p+1) x (2p+1), the lattices phase 8 runs) at every p = 1..10
+     with its device time, plain time and bound per order; p = 1, 2, 3, 4,
+     6 on edge lattices with random bands
      (Dx = 2p+1 periodic; an odd Dx with Dy and Dz no multiples of the
      tiles), ess_top on and off; the four p-multigrid lattices of the
      ss.cpp path and the four of path C. At the ss.cpp lattices: device time
@@ -118,11 +121,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the 40-step accuracy run, whose nodal eta error must stay below 0.1 H,
    within 1 % of phase 3's and whose eta within 1e-5 max|eta| of phase 3's.
 
+7. The bench twin (``lpfem_torch.bench.bench_once``, what ``python -m
+   lpfem_torch.bench`` runs) on the ss.cpp tank, launch counts set to 0
+   just before each row and read just after: refs 2 with the full protocol
+   (a warm-up step, then 10 RK4 steps, median of 3) and its float32 /
+   rtol_sq 1e-8 secondary row, refs 1 and 3 with one repeat, refs 4
+   (135,530,496 dofs) as set-up, a warm-up and one timed RK4 step. Requires
+   each size's dofs, converged cold solves, 8 cold iterations at refs 2,
+   B1 launches and value = dofs x 4 x steps / wall; prints each row's JSON,
+   set-up seconds and peak device and host memory.
+8. The drivers, each with the launch counts set to 0 just before and read
+   just after: ``laplace_conv --mode p`` (p = 1..10) in float64 and mixed
+   (tables in ``chiprun_out/``) must have ``data/laplace-pconv-phi.txt``'s
+   dofs, err_inf within 1.5x of it at p <= 8 and at most 1e-13 at p = 9,
+   10, and B1 launched at every p; ``pf_conv`` at p = 4 over 150 steps
+   within 1.5x of ``data/pf-parallel-pconv-eta.txt``; ``pf_run`` of the
+   flagship in 40 steps with ParaView output every 10 (20 steps over its
+   5 T diverge), then resumed from the checkpoint of its step 20 to the
+   same bits; ``entry()``'s step against the CPU's, 1e-10.
+
 Phases 3, 4 (float64), 5A, 5B and 6 each profile one more RK4 step with
 torch.profiler, outside the timed window: device kernel time by category and
 the device's busy share. Each phase's own time is printed.
 
-Prints one JSON line describing the kernels, then as the last line
+Prints one JSON line describing the kernels (B1's ``orders_on_path``: the
+orders phases 7-8 launched it at), then as the last line
 ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -421,8 +444,27 @@ def _element_csr_readings(A, op, gap: float) -> dict:
     return out
 
 
+def _conv_tank(p: int):
+    """The stationary study's tank (``lpfem_torch.experiments.laplace_conv``
+    on ``make_wave_tank(8, 1, 2)``) as a lattice at order p: 8p x (p+1) x
+    (2p+1) dofs, x periodic."""
+    from lpfem_torch.space import LatticeSpace, grid_lines
+    return LatticeSpace((grid_lines(8, 1.0), grid_lines(1, 0.1),
+                         grid_lines(2, 1.0 / (2 * 3.141592653589793))), p,
+                        (True, False, False))
+
+
+def _b1_bound(sp, itemsize: int, dtype: str) -> tuple[float, str]:
+    """B1's bound on the lattice of ``sp``: input read once, output written
+    once, the six bands; 7(2p+1) multiply-adds per dof."""
+    n, p = sp.n_dofs, sp.p
+    nbytes = itemsize * (2 * n + 2 * (2 * p + 1) * sum(sp.dof_dims))
+    return _bound(nbytes, 2 * 7 * (2 * p + 1) * n, PEAK_FLOPS[dtype])
+
+
 def phase_sep_apply(report: dict) -> dict:
     import torch
+    from lpfem_torch.kernels import sep_apply as ksep
     from lpfem_torch.kernels.sep_apply import (choose_tiles, sep_apply,
                                                sep_apply_reference)
     from lpfem_torch.operators import AffineLatticeLaplace, SeparableLattice
@@ -453,9 +495,10 @@ def phase_sep_apply(report: dict) -> dict:
 
     lz = 1.0 / (2 * 3.141592653589793)
     small = []
-    # p = 1, 2, 4 compiled fixed; 3 and 6 the general instantiation
+    # p = 1, 2, 4 compiled fixed; the rest to MAX_P the general
+    # instantiation
     for per, nx, lx in ((True, 6, 1.0), (False, 5, 12.0)):
-        for p in (1, 2, 3, 4, 6):
+        for p in range(1, ksep.MAX_P + 1):
             small.append(LatticeSpace((grid_lines(nx, lx), grid_lines(2, 0.1),
                                        grid_lines(3, lz)), p,
                                       (per, False, False)))
@@ -483,6 +526,36 @@ def phase_sep_apply(report: dict) -> dict:
                                 f"{'x'.join(map(str, dims))} p={p} "
                                 f"{'periodic' if per else 'finite'} tiles "
                                 f"{tiles[:3]}")
+
+    # the stationary p-sweep's tank at every order (phase 8 runs it there):
+    # checked, and timed in float64 (its float64 sweep) and float32 (the
+    # mixed sweep's inner solve)
+    conv = []
+    for p in range(1, ksep.MAX_P + 1):
+        sp = _conv_tank(p)
+        dims = "x".join(str(d) for d in sp.dof_dims[::-1])
+        for dtype in (torch.float32, torch.float64):
+            op, x, abs_err = check(sp, dtype, True,
+                                   f"stationary tank p={p} {dims}")
+            check(sp, dtype, False, f"stationary tank p={p} {dims}")
+            b1 = lambda v: sep_apply(v, op.bands, op.periodic, True)
+            dev = _device_ms(b1, [(x,)], B1_KERNEL)
+            ms = _time_chain(b1, [(x,)])
+            plain = _time_chain(lambda v: sep_apply_reference(
+                v, op.bands, op.periodic, True), [(x,)])
+            dt = str(dtype)[6:]
+            bound, by = _b1_bound(sp, x.element_size(), dt)
+            conv.append(dict(p=p, dims=dims, dtype=dt, ms=dev if dev
+                             is not None else ms, device_ms=dev, call_ms=ms,
+                             plain_ms=plain, bound_ms=bound, bound_by=by,
+                             max_abs_err=abs_err,
+                             tiles=choose_tiles(sp.dof_dims, p,
+                                                x.element_size())))
+            print(f"[2] time sep_apply stationary tank p={p} {dims} {dt} "
+                  f"ess_top=1: kernel {conv[-1]['ms']:.4f} ms on the device "
+                  f"({ms:.4f} ms per call), plain {plain:.4f} ms, bound "
+                  f"{bound:.5f} ms ({by})")
+    report["sep_apply_conv_times"] = conv
 
     def cases(li):
         """Every level's float32 inner solve; on the fine level also the
@@ -522,13 +595,8 @@ def phase_sep_apply(report: dict) -> dict:
                                      "memset or copy)")
             plain = _time_chain(lambda v: sep_apply_reference(
                 v, op.bands, op.periodic, ess), [(x,)])
-            n, p = sp.n_dofs, sp.p
-            # input read once, output written once, the six bands; the
-            # kernel's 7(2p+1) multiply-adds per dof
-            nbytes = x.element_size() * (2 * n + 2 * (2 * p + 1)
-                                         * sum(sp.dof_dims))
-            bound, by = _bound(nbytes, 2 * 7 * (2 * p + 1) * n,
-                               PEAK_FLOPS[dt])
+            p = sp.p
+            bound, by = _b1_bound(sp, x.element_size(), dt)
             row = dict(level=li, p=p, dims=dims, dtype=dt, ess_top=ess,
                        ms=dev if dev is not None else ms, call_ms=ms,
                        device_ms=dev, plain_ms=plain, max_abs_err=abs_err,
@@ -1774,6 +1842,221 @@ def phase_ds_path(report: dict, ss: dict) -> int:
     return counts["sep_apply_ds"]
 
 
+BENCH_DOFS = {1: 282_880, 2: 2_179_584, 3: 17_105_920, 4: 135_530_496}
+# data/laplace-pconv-phi.txt (the JAX package's float64 p-sweep): the limits
+# of phase 8's float64 and mixed sweeps (1.5x the committed err_inf up to
+# p = 8; at p = 9, 10 the round-off floor, at most 1e-13); the same ratio
+# holds phase 8's p = 4 dynamic case to data/pf-parallel-pconv-eta.txt
+CONV_RATIO = 1.5
+CONV_FLOOR = 1e-13
+PF_RUN_STEPS = 40      # the flagship's 5 T in 40 steps (20 diverge: dt = T/4
+                       # is past RK4's limit for the fastest surface modes)
+
+
+def _gib(b) -> str:
+    return "n/a" if b is None else f"{b / 2 ** 30:.3f} GiB"
+
+
+def _bench_row(args, refs: int, tag: str, **kw) -> dict:
+    """One ``bench_once`` row with the launch counts set to 0 just before
+    and read just after; requires the protocol's dofs, a converged cold
+    solve, every timed stage converged, B1 launches and value = dofs x
+    solves / wall, recomputed from the protocol's dofs and the median of
+    the measured walls (rounded to 0.1 ms, hence the 1e-4 relative)."""
+    import torch
+    from lpfem_torch import bench
+    torch.cuda.empty_cache()
+    _zero_counts()
+    r = bench.bench_once(args, refs, **kw)
+    r["launches"] = _read_counts()
+    print(f"[7] {tag}: {json.dumps(r)}")
+    print(f"[7] {tag}: {r['n_dofs']} dofs, set-up {r['setup_s']:.2f} s, "
+          f"wall {r['wall_s']:.4f} s (walls {r['walls']}) -> "
+          f"{r['value']:.4e} dof*solves/s; timed stages all converged "
+          f"{not r['unconverged_steps']} ({r['timed_inner_iters']} inner CG "
+          f"iterations); cold solve {r['cg_iters']} inner "
+          f"CG iterations (converged {r['cold_converged']}); apply "
+          f"{r['apply_ms']:.4f} ms; peak device memory "
+          f"{_gib(r['peak_device_mem_bytes'])}, peak host RSS "
+          f"{_gib(r['peak_rss_bytes'])}; B1 calls by p "
+          f"{r['launches']['sep_apply_by_p']}")
+    if r["n_dofs"] != BENCH_DOFS[refs]:
+        raise AssertionError(f"refs={refs}: {r['n_dofs']} dofs, expected "
+                             f"{BENCH_DOFS[refs]}")
+    if not r["cold_converged"]:
+        raise AssertionError(f"{tag}: the cold solve did not converge")
+    if r["unconverged_steps"]:
+        raise AssertionError(f"{tag}: a timed stage's solve did not converge")
+    value = BENCH_DOFS[refs] * 4 * args.steps / statistics.median(r["walls"])
+    if abs(r["value"] - value) > 1e-4 * value:
+        raise AssertionError(f"{tag}: value {r['value']} is not dofs x "
+                             f"solves / median wall = {value}")
+    if r["launches"]["sep_apply"] <= 0:
+        raise AssertionError(f"{tag}: no sep_apply launch")
+    return r
+
+
+def phase_bench(report: dict) -> dict:
+    """The bench twin, ``lpfem_torch.bench.bench_once``: refs 2 with the
+    full protocol (10 RK4 steps after a warm-up step, median of 3) and its
+    float32 / rtol_sq 1e-8 secondary row; refs 1 and 3 with one repeat;
+    refs 4 (135,530,496 dofs) as set-up, a warm-up and one timed RK4 step,
+    and the cold solve."""
+    from lpfem_torch import bench
+    full = bench.parser().parse_args([])
+    one = bench.parser().parse_args(["--repeats", "1"])
+    step = bench.parser().parse_args(["--repeats", "1", "--steps", "1"])
+    print(f"[7] card: {report['nvidia_smi']}")
+    rows = {"refs2": _bench_row(full, 2, "refs 2, the protocol")}
+    if rows["refs2"]["cg_iters"] != EXPECTED_COLD_ITERS:
+        raise AssertionError(f"refs 2: {rows['refs2']['cg_iters']} cold "
+                             f"iterations, expected {EXPECTED_COLD_ITERS}")
+    rows["refs2_f32"] = _bench_row(full, 2, "refs 2, float32 rtol_sq 1e-8",
+                                   dtype="float32", rtol_sq=1e-8)
+    rows["refs1"] = _bench_row(one, 1, "refs 1, one repeat")
+    rows["refs3"] = _bench_row(one, 3, "refs 3, one repeat")
+    rows["refs4"] = _bench_row(step, 4, "refs 4, one RK4 step")
+    report["bench"] = rows
+    return rows
+
+
+def _conv_table(dtype: str) -> tuple:
+    """``laplace_conv --mode p`` (p = 1..10) in ``dtype``, launch counts set
+    to 0 just before and read just after; (table, counts)."""
+    import numpy as np
+    from lpfem_torch.experiments import laplace_conv
+    path = Path("chiprun_out") / f"laplace-pconv-phi-{dtype}.txt"
+    path.unlink(missing_ok=True)
+    _zero_counts()
+    laplace_conv.main(["--mode", "p", "--dtype", dtype, "--out", str(path)])
+    return np.loadtxt(path, ndmin=2), _read_counts()
+
+
+def phase_drivers(report: dict) -> set:
+    """The stationary p-sweep in float64 and mixed, the dynamic p = 4 case,
+    the preset runner with ParaView output and a resumed checkpoint, and
+    ``entry()``'s step. Returns the orders B1 ran at."""
+    import numpy as np
+    import torch
+    import lpfem_torch
+    from lpfem_torch import io as lio
+    from lpfem_torch.entry import entry
+    from lpfem_torch.experiments import pf_conv, pf_run
+
+    out = Path("chiprun_out")
+    orders = set()
+    ref = np.loadtxt("data/laplace-pconv-phi.txt", ndmin=2)
+    rep = report["drivers"] = {}
+    for dtype in ("float64", "mixed"):
+        t0 = time.perf_counter()
+        tab, counts = _conv_table(dtype)
+        by_p = counts["sep_apply_by_p"]
+        orders |= set(by_p)
+        print(f"[8] laplace_conv --mode p --dtype {dtype}: "
+              f"{time.perf_counter() - t0:.1f} s, B1 calls by p {by_p}")
+        for row, rrow in zip(tab, ref):
+            print(f"[8]   p={int(row[0]):2d} dofs={int(row[1]):6d} err_inf="
+                  f"{row[2]:.3e} (data {rrow[2]:.3e}, ratio "
+                  f"{row[2] / rrow[2]:.3f}) err_l2={row[3]:.3e} (data "
+                  f"{rrow[3]:.3e}) iters={int(row[4])} (data "
+                  f"{int(rrow[4])}) wall={row[5]:.3f} s")
+        rep[f"laplace_conv_{dtype}"] = dict(table=tab.tolist(),
+                                            b1_calls_by_p=by_p)
+        if not np.array_equal(tab[:, :2], ref[:, :2]):
+            raise AssertionError(f"laplace_conv {dtype}: orders / dofs "
+                                 "differ from data/laplace-pconv-phi.txt")
+        missing = set(range(1, 11)) - set(by_p)
+        if missing:
+            raise AssertionError(f"laplace_conv {dtype}: B1 not launched at "
+                                 f"p = {sorted(missing)}")
+        lo = tab[:, 0] <= 8
+        if not (np.all(tab[lo, 2] <= CONV_RATIO * ref[lo, 2])
+                and np.all(tab[~lo, 2] <= CONV_FLOOR)):
+            raise AssertionError(f"laplace_conv {dtype}: err_inf past "
+                                 f"{CONV_RATIO}x data (p <= 8) or "
+                                 f"{CONV_FLOOR} (p = 9, 10)")
+
+    # the dynamic p-sweep's p = 4 case over one period in 150 steps
+    pf_path = out / "pf-parallel-pconv-eta-p4.txt"
+    pf_path.unlink(missing_ok=True)
+    _zero_counts()
+    t0 = time.perf_counter()
+    pf_conv.main(["--mode", "p", "--min-order", "4", "--max-order", "4",
+                  "--out", str(pf_path)])
+    counts = _read_counts()
+    orders |= set(counts["sep_apply_by_p"])
+    row = np.loadtxt(pf_path, ndmin=2)[0]
+    pref = np.loadtxt("data/pf-parallel-pconv-eta.txt", ndmin=2)[3]
+    print(f"[8] pf_conv p=4, 150 steps: {time.perf_counter() - t0:.1f} s; "
+          f"surface dofs {int(row[1])} (data {int(pref[1])}), eta_err "
+          f"{row[2]:.4e} (data {pref[2]:.4e}), w_err {row[3]:.4e} (data "
+          f"{pref[3]:.4e}), B1 calls by p {counts['sep_apply_by_p']}")
+    rep["pf_conv_p4"] = dict(row=row.tolist(), data=pref.tolist(),
+                             b1_calls_by_p=counts["sep_apply_by_p"])
+    if not (int(row[1]) == int(pref[1])
+            and np.all(row[2:4] <= CONV_RATIO * pref[2:4])):
+        raise AssertionError(f"pf_conv p=4: {row} against {pref} (limit "
+                             f"{CONV_RATIO}x)")
+
+    # the preset runner: the flagship in 40 steps with ParaView output every
+    # 10; then the checkpoint a run stopped at step 20 leaves (written by
+    # the library), resumed by the driver, must end on the same bits
+    pv = out / "ParaView"
+    ck_full, ck_half = out / "pf_run_full.npz", out / "pf_run_step20.npz"
+    common = ["--preset", "pf_linear_par_partial", "--nsteps",
+              str(PF_RUN_STEPS), "--checkpoint-every", "20"]
+    _zero_counts()
+    t0 = time.perf_counter()
+    t, y, phi = pf_run.main(common + ["--paraview-every", "10",
+                                      "--paraview-dir", str(pv),
+                                      "--checkpoint", str(ck_full)])
+    counts = _read_counts()
+    orders |= set(counts["sep_apply_by_p"])
+    wall = time.perf_counter() - t0
+    cfg = lpfem_torch.preset("pf_linear_par_partial", nsteps=PF_RUN_STEPS)
+    prob = lpfem_torch.Problem(cfg, "cuda")
+    t20, y20, phi20 = prob.run(n_steps=PF_RUN_STEPS // 2)
+    lio.save_checkpoint(str(ck_half), step=PF_RUN_STEPS // 2, t=t20, y=y20,
+                        phi=phi20, config=cfg.name)
+    t2, y2, phi2 = pf_run.main(common + ["--resume", str(ck_half),
+                                         "--checkpoint",
+                                         str(out / "pf_run_resumed.npz")])
+    ns = prob.surf.n_dofs
+    amax = float(y[:ns].abs().max())
+    same = t2 == t and torch.equal(y2, y) and torch.equal(phi2, phi)
+    vtus = {d.name: len(list(d.glob("*.vtu"))) for d in pv.iterdir()}
+    print(f"[8] pf_run pf_linear_par_partial, {PF_RUN_STEPS} steps: "
+          f"{wall:.1f} s, max|eta| {amax:.4e} (H = {cfg.H}), resumed from "
+          f"step {PF_RUN_STEPS // 2} bit for bit: {same}; ParaView files "
+          f"{vtus}; B1 calls by p {counts['sep_apply_by_p']}")
+    rep["pf_run"] = dict(wall_s=wall, max_eta=amax, resumed_same=same,
+                         vtus=vtus)
+    if not (same and 0 < amax < cfg.H):
+        raise AssertionError(f"pf_run: resumed bits equal {same}, max|eta| "
+                             f"{amax}")
+    if vtus != {f"{cfg.name}_vol": 4, f"{cfg.name}_fs": 4}:
+        raise AssertionError(f"pf_run ParaView output: {vtus}")
+
+    # entry(): one RK4 step of the flagship at entry size, against the CPU
+    fn, args = entry()
+    _zero_counts()
+    y, phi = fn(*args)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    orders |= set(counts["sep_apply_by_p"])
+    fc, ac = entry("cpu")
+    yc, phic = fc(*ac)
+    d = float((y.cpu() - yc).abs().max() / yc.abs().max())
+    print(f"[8] entry(): fn ran one RK4 step, {counts['sep_apply']} B1 "
+          f"calls; max|y - y_cpu| / max|y_cpu| = {d:.3e} (limit 1e-10)")
+    rep["entry"] = dict(rel_diff_cpu=d, b1_calls=counts["sep_apply"])
+    if not (bool(torch.isfinite(y).all()) and d <= 1e-10
+            and counts["sep_apply"] > 0):
+        raise AssertionError(f"entry step: {d}, {counts}")
+    rep["orders_on_path"] = sorted(orders)
+    return orders
+
+
 def main() -> int:
     import warnings
     # torch's notes that sparse CSR is beta / unchecked (the yardsticks)
@@ -1805,6 +2088,9 @@ def main() -> int:
     pa_launches = timed("4 diffraction", phase_diffraction)
     launches = timed("5 general mesh", phase_general_mesh, ss["err"])
     ds_launches = timed("6 double-single outer", phase_ds_path, ss)
+    bench_rows = timed("7 bench twin", phase_bench)
+    orders = sorted(timed("8 drivers", phase_drivers)
+                    | set(bench_rows["refs2"]["launches"]["sep_apply_by_p"]))
     report["total_s"] = time.perf_counter() - t_start
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"total {report['total_s']:.1f} s")
@@ -1817,6 +2103,12 @@ def main() -> int:
              launches=ss["launches"], path_c_launches=launches["C"],
              launches_per_step_by_p=report["ss_path"][
                  "b1_calls_per_step_by_p"],
+             orders_on_path=orders,
+             bench_refs2_launches=bench_rows["refs2"]["launches"][
+                 "sep_apply"],
+             stationary_tank_ms_by_p={
+                 f"{r['p']} {r['dtype']}": r["ms"]
+                 for r in report["sep_apply_conv_times"]},
              **{k: sep[k] for k in keys}),
         dict(name="pa_apply_element", route="cuda",
              source="lpfem_torch/csrc/pa_apply.cu",

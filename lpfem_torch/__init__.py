@@ -23,14 +23,24 @@ reader can find each counterpart:
                lattice Laplace (AffineLatticeLaplace), element-form Laplace
                (ElementLaplace), the rule that picks one, free-surface trace
     solvers    PCG and mixed-precision iterative refinement, with a float64
-               or a double-single outer loop (host loops)
+               or a double-single outer loop (host loops), and the
+               stationary drivers' refinement loop (pcg_refined)
     multigrid  Chebyshev-Jacobi smoother and p/h-multigrid V-cycle
     surface    free-surface right-hand side, relaxation zones
     timestep   RK4 with the non-finite freeze guard and a record hook
     problem    Config (+ mesh) -> operators -> time loop
+    io         VTU / PVD output, data files, checkpoints (NumPy)
+    profiling  phase timer, torch.profiler trace, finite-state check
+    bench      the headline benchmark (``python -m lpfem_torch.bench``)
+    entry      one RK4 step of the flagship model, ``(fn, example_args)``
     experiments.diffraction    the wave-cylinder diffraction study
     experiments.leaning_tank   the periodic tank meshed with sheared elements
     experiments.solve_profile  per-component times of one RK4 stage
+    experiments.apply_bench    the constrained apply's time
+    experiments.laplace_conv   stationary Laplace p- and h-convergence
+    experiments.pf_conv        time-dependent p- and h-convergence
+    experiments.pf_run         any preset, with ParaView output and
+                               checkpoint / resume
 
 Device and dtype policy: every constructor takes an explicit ``device``;
 ``dtype="mixed"`` keeps the state and the outer residual in float64 and runs

@@ -4,8 +4,9 @@ A copy of ``lpfem.analytic`` (host NumPy / SciPy, the same operations):
 
 - dispersion fixed point ``kh = sqrt((w^2/g) h kh coth(kh))``
   (``Solvers/PF_linear_serial.cpp:15-34``),
-- the Airy free-surface fields (``Solvers/PF_linear_serial.cpp:351-364``;
-  the volume fields ``phi``/``w_vel`` are not ported yet),
+- the Airy free-surface fields (``Solvers/PF_linear_serial.cpp:351-364``)
+  and the volume fields ``phi`` / ``w_vel``
+  (``Solvers/laplace_solver.cpp:74-81``),
 - the McCamy-Fuchs wave-cylinder diffraction series with Bessel/Hankel terms
   (``Solvers/cylinder-exact.cpp:52-115``; Boost.Math there, SciPy here).
 """
@@ -85,6 +86,13 @@ class AiryWave:
     def phi_fs(self, x, y, t=0.0):
         amp = -0.5 * self.H * self.c * np.cosh(self.kh) / np.sinh(self.kh)
         return amp * np.sin(self.phase(x, y, t))
+
+    def phi(self, x, y, z, t=0.0):
+        """Volume potential; z measured with free surface at ``z_top`` and
+        bottom at ``z_top - h`` (``Solvers/laplace_solver.cpp:74-78``)."""
+        zz = z - self.z_top + self.h
+        amp = -0.5 * self.H * self.c / np.sinh(self.kh)
+        return amp * np.cosh(self.k * zz) * np.sin(self.phase(x, y, t))
 
     def w_vel(self, x, y, z, t=0.0):
         """Vertical velocity dphi/dz (``Solvers/laplace_solver.cpp:79-81``)."""

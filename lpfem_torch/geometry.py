@@ -16,7 +16,7 @@ import numpy as np
 from .elements import basis_1d, lagrange_eval
 
 __all__ = ["affine_c6", "geometric_factors", "grad_interp_matrix",
-           "surface_elements", "top_trace_geometry"]
+           "quad_geometry", "surface_elements", "top_trace_geometry"]
 
 _GEOM_CHUNK = 1 << 16   # elements per host chunk (bounds the [*,Q,3,3] temps)
 
@@ -90,6 +90,27 @@ def geometric_factors(space, q: int | None = None) -> np.ndarray:
         _, detJ, Jinv = _jacobian_chunk(cc[s:s + _GEOM_CHUNK], bg.B, bg.D, q)
         G[s:s + _GEOM_CHUNK] = w3[None, :, None] * _metric6_chunk(detJ, Jinv)
     return G
+
+
+def quad_geometry(space, q: int) -> tuple[np.ndarray, np.ndarray]:
+    """(wdetJ [ne, Q], xq [ne, Q, 3]) float64: the Gauss weight times
+    |J| and the physical coordinates at the q^3 points of every element,
+    (qz, qy, qx) C-order, elements in the space's order — the error-norm
+    tables of ``lpfem.operators.geometric_factors``
+    (``lpfem/operators.py:123-163``)."""
+    qw = basis_1d(space.p, q).qwts
+    gnodes, pg = space.geometry_lattice()
+    bg = basis_1d(pg, q)
+    pg1 = pg + 1
+    cc = gnodes.reshape(-1, pg1, pg1, pg1, 3)
+    w3 = np.einsum("c,b,a->cba", qw, qw, qw).reshape(-1)
+    wdetJ = np.empty((cc.shape[0], q ** 3))
+    for s in range(0, cc.shape[0], _GEOM_CHUNK):
+        _, detJ, _ = _jacobian_chunk(cc[s:s + _GEOM_CHUNK], bg.B, bg.D, q)
+        wdetJ[s:s + _GEOM_CHUNK] = detJ * w3[None, :]
+    B3 = np.einsum("cz,by,ax->cbazyx", bg.B, bg.B, bg.B).reshape(q ** 3,
+                                                                 pg1 ** 3)
+    return wdetJ, np.einsum("qk,ekd->eqd", B3, gnodes)
 
 
 def grad_interp_matrix(p: int, q: int) -> np.ndarray:

@@ -22,8 +22,10 @@ four applies inside one class; here each is a class and
 
 Every wrapper takes its kernel's plain version on CPU tensors. All classes
 share ``apply``, ``constrained_apply_top`` (identity rows and columns on the
-free-surface dofs ``space.top_plane_dofs()``), ``constrained_rhs``, ``diag``
-and ``assemble_scipy``.
+free-surface dofs ``space.top_plane_dofs()``), ``constrained_apply`` (the
+same on any essential list; the top plane takes the route above),
+``constrained_rhs``, ``diag``, ``assemble_scipy`` and the error norms
+``interp_quad`` / ``l2_norm_sq`` / ``l2_error`` (MFEM ``ComputeL2Error``).
 
 :class:`NodalZDerivative` is the free-surface trace of MFEM's nodal
 ``GetDerivative(1, 2, w)``, :func:`nodal_z_derivative` the same derivative
@@ -43,7 +45,7 @@ from torch import nn
 from .ds import DS
 from .elements import basis_1d
 from .geometry import (affine_c6, geometric_factors, grad_interp_matrix,
-                       surface_elements, top_trace_geometry)
+                       quad_geometry, surface_elements, top_trace_geometry)
 from .kernels.lattice_apply import lattice_affine_apply
 from .kernels.pa_apply import pa_apply_affine, pa_apply_element
 from .kernels.sep_apply import sep_apply
@@ -129,6 +131,33 @@ class _Operator(nn.Module):
         return torch.as_tensor(self.space.top_plane_dofs(),
                                device=self.device)
 
+    def _is_top(self, ess: torch.Tensor) -> bool:
+        """Whether the essential list ``ess`` is the free-surface set
+        ``space.top_plane_dofs()`` in some order; read on the host once per
+        list object (the last one is remembered)."""
+        seen = self.__dict__.get("_top_seen")
+        if seen is None or seen[0] is not ess:
+            top = self.space.top_plane_dofs()
+            got = np.sort(ess.detach().cpu().numpy())
+            seen = (ess, bool(np.array_equal(got, top)))
+            self.__dict__["_top_seen"] = seen
+        return seen[1]
+
+    def constrained_apply(self, x: torch.Tensor,
+                          ess: torch.Tensor) -> torch.Tensor:
+        """Apply with identity rows/cols on the essential dofs ``ess`` (the
+        operator ``FormLinearSystem`` produces; ``lpfem/operators.py:
+        820-837``): ``x`` read as zero there, the output set to ``x``. On
+        the free-surface set this is :meth:`constrained_apply_top` (the
+        kernels' ``ess_top`` route)."""
+        if self._is_top(ess):
+            return self.constrained_apply_top(x)
+        x0 = x.clone()
+        x0[ess] = 0.0
+        y = self.apply(x0)
+        y[ess] = x[ess]
+        return y
+
     def constrained_rhs(self, b: torch.Tensor, ess_vals: torch.Tensor,
                         ess: torch.Tensor | None = None):
         """(B, x_bc): eliminated right-hand side and boundary lift of the
@@ -142,6 +171,43 @@ class _Operator(nn.Module):
         B = b - self.apply(x_bc)
         B[ess] = ess_vals
         return B, x_bc
+
+    # ------------------------------------------------------------------ norms
+    @cached_property
+    def _quad(self):
+        """(elem_dofs, B, wdetJ) on the device in the operator dtype, and
+        xq [ne, Q, 3] float64 on the host: the space's element table and the
+        q-point Gauss geometry (built at first use)."""
+        wdetJ, xq = quad_geometry(self.space, self.q)
+        dev = self.device
+        return (torch.as_tensor(self.space.elem_dofs, device=dev),
+                torch.tensor(basis_1d(self.p, self.q).B).to(
+                    device=dev, dtype=self.dtype),
+                torch.tensor(wdetJ).to(device=dev, dtype=self.dtype), xq)
+
+    def interp_quad(self, x: torch.Tensor) -> torch.Tensor:
+        """Field values at the quadrature points, [ne, Q]
+        (``lpfem/operators.py:849-854``)."""
+        ed, B, _, _ = self._quad
+        p1 = self.p + 1
+        u = x[ed].view(-1, p1, p1, p1)
+        v = torch.einsum("cz,by,ax,ezyx->ecba", B, B, B, u)
+        return v.reshape(u.shape[0], self.q ** 3)
+
+    def l2_norm_sq(self, x: torch.Tensor) -> torch.Tensor:
+        v = self.interp_quad(x)
+        return torch.sum(self._quad[2] * v * v)
+
+    def l2_error(self, x: torch.Tensor, exact_fn) -> torch.Tensor:
+        """L2 error against ``exact_fn(xq, yq, zq)`` (NumPy, float64) at the
+        quadrature points (MFEM ``ComputeL2Error`` semantics;
+        ``lpfem/operators.py:860-867``)."""
+        _, _, wdetJ, xq = self._quad
+        v = self.interp_quad(x)
+        ex = torch.tensor(np.asarray(exact_fn(xq[..., 0], xq[..., 1],
+                                              xq[..., 2]))).to(v)
+        d = v - ex
+        return torch.sqrt(torch.sum(wdetJ * d * d))
 
 
 def separable_spacings(space):

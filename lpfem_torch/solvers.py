@@ -1,6 +1,7 @@
 """Preconditioned CG and mixed-precision iterative refinement.
 
-Counterpart of ``lpfem.solvers.pcg`` / ``pcg_ir`` / ``pcg_ir_ds`` with every
+Counterpart of ``lpfem.solvers.pcg`` / ``pcg_ir`` / ``pcg_ir_ds`` /
+``pcg_refined`` with every
 rule kept: MFEM's threshold ``r.z <= max(rz0 * rtol_sq, atol_sq)``, the
 zero-denominator guards on ``alpha`` and ``beta``, the ``grow_limit``
 breakdown guard, and the outer true-residual loop (float64 or double-single)
@@ -20,7 +21,7 @@ import torch
 
 from .ds import DS, ds_add_f32, ds_sub
 
-__all__ = ["CGResult", "pcg", "pcg_ir", "pcg_ir_ds"]
+__all__ = ["CGResult", "pcg", "pcg_ir", "pcg_ir_ds", "pcg_refined"]
 
 
 class CGResult(NamedTuple):
@@ -157,3 +158,20 @@ def pcg_ir_ds(apply_ds: Callable, apply_lo: Callable, b: DS, x0: DS,
         it += inner.iters
         syncs += inner.syncs
     return CGResult(x=x, iters=it, rz=rr, rz0=rr0, syncs=syncs)
+
+
+def pcg_refined(apply_hi: Callable, apply_lo: Callable, b: torch.Tensor,
+                x0: torch.Tensor, precond_lo: Callable = lambda r: r,
+                rtol_sq: float = 1e-24, atol_sq: float = 0.0,
+                max_outer: int = 6, inner_rtol_sq: float = 1e-8,
+                inner_max_iter: int = 1000,
+                lo_dtype: torch.dtype = torch.float32) -> CGResult:
+    """Mixed-precision CG by iterative refinement for one stationary solve
+    (``lpfem/solvers.py:213-254``, the stationary drivers' form): lpfem's
+    defaults on :func:`pcg_ir`'s loop, which runs the same arithmetic. (On a
+    NaN residual lpfem's host loop runs on to ``max_outer``; here the loop
+    ends, as in the time loop's solve.)"""
+    return pcg_ir(apply_hi, apply_lo, b, x0, precond_lo=precond_lo,
+                  rtol_sq=rtol_sq, atol_sq=atol_sq, max_outer=max_outer,
+                  inner_rtol_sq=inner_rtol_sq,
+                  inner_max_iter=inner_max_iter, lo_dtype=lo_dtype)

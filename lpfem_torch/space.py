@@ -146,6 +146,43 @@ class LatticeSpace(_NodalProjection):
         return (np.array([g[0] for g in self.lines]),
                 np.array([g[-1] for g in self.lines]))
 
+    # The element tables below serve the error norms and the VTU output
+    # (lpfem's H1Space of the same tank has the same element order and
+    # numbering); the operators and the time loop never build them.
+    @cached_property
+    def elem_dofs(self) -> np.ndarray:
+        """[ne, (p+1)^3] int64: each element's dofs, x fastest, the
+        elements lattice-major."""
+        p1 = self.p + 1
+        g = [(np.arange(n)[:, None] * self.p + np.arange(p1)) % D
+             for n, D in zip(self.elem_dims, self.dof_dims)]
+        Dx, Dy, _ = self.dof_dims
+        gx, gy, gz = g
+        ed = (gx[None, None, :, None, None, :]
+              + Dx * (gy[None, :, None, None, :, None]
+                      + Dy * gz[:, None, None, :, None, None]))
+        return ed.reshape(-1, p1 ** 3)
+
+    def geometry_lattice(self) -> tuple[np.ndarray, int]:
+        """(corners [ne, 8, 3] lattice-lex, 1): the boxes' corners (a
+        periodic seam element ends at x = Lx)."""
+        lo_hi = [np.stack([g[:-1], g[1:]], axis=1) for g in self.lines]
+        nex, ney, nez = self.elem_dims
+        X = np.broadcast_to(lo_hi[0][None, None, :, None, None, :],
+                            (nez, ney, nex, 2, 2, 2))
+        Y = np.broadcast_to(lo_hi[1][None, :, None, None, :, None],
+                            (nez, ney, nex, 2, 2, 2))
+        Z = np.broadcast_to(lo_hi[2][:, None, None, :, None, None],
+                            (nez, ney, nex, 2, 2, 2))
+        return np.stack([X, Y, Z], axis=-1).reshape(-1, 8, 3), 1
+
+    @cached_property
+    def elem_node_coords(self) -> np.ndarray:
+        """[ne, (p+1)^3, 3] element node coordinates, trilinear from the
+        corners as ``H1Space.elem_node_coords``."""
+        corners = self.geometry_lattice()[0][:, _LEX_OF_VERT, :]
+        return np.einsum("lk,ekd->eld", trilinear_weights(self.p), corners)
+
 
 def _top_plane_dofs(dof_dims) -> np.ndarray:
     Dx, Dy, Dz = dof_dims

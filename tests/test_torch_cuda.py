@@ -162,6 +162,105 @@ def test_entry_takes_the_wrappers_tiles_and_shared_memory(cuda, p, dtype):
         assert rc != 0, wrong
 
 
+def _conv_tank(p):
+    """The stationary study's tank (``experiments.laplace_conv``:
+    ``make_wave_tank(8, 1, 2)``) at order p: 8p x (p+1) x (2p+1) dofs, x
+    periodic."""
+    return LatticeSpace((grid_lines(8, 1.0), grid_lines(1, 0.1),
+                         grid_lines(2, 1 / (2 * np.pi))), p,
+                        (True, False, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("p", [5, 7, 8, 9, 10])
+@pytest.mark.parametrize("tank", ["laplace_conv", "periodic"])
+def test_kernel_matches_plain_version_at_the_general_orders(cuda, tank, p,
+                                                            dtype, tol):
+    """B1 at the orders only the general instantiation runs (the
+    stationary p-sweep reaches them), on the study's tank and a periodic
+    tank, bitwise equal on a second call."""
+    sp = _conv_tank(p) if tank == "laplace_conv" else _space(True, p, nx=5)
+    op = SeparableLattice(sp, dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(100 + p)
+    x = torch.randn(op.dof_dims[::-1], generator=gen, device=cuda,
+                    dtype=dtype)
+    for ess in (False, True):
+        before = ksep.LAUNCHES_BY_P.get(p, 0)
+        y = ksep.sep_apply(x, op.bands, op.periodic, ess)
+        assert ksep.LAUNCHES_BY_P[p] == before + 1
+        assert torch.equal(y, ksep.sep_apply(x, op.bands, op.periodic, ess))
+        y_ref = ksep.sep_apply_reference(x, op.bands, op.periodic, ess)
+        torch.cuda.synchronize()
+        err = float((y - y_ref).abs().max() / y_ref.abs().max())
+        assert err < tol, (ess, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [5, 10])
+def test_laplace_conv_case_on_gpu_matches_cpu(cuda, p, monkeypatch):
+    """One float64 case of the stationary p-sweep on the GPU (B1 at p and
+    at the p-multigrid's lower orders) against the CPU (plain versions):
+    the same dofs, iterations within one, and the solution vectors within
+    1e-12 of max|x|. The error norms are compared (within 1e-6 relative)
+    only at p <= 8: at p = 10 they sit at the float64 round-off floor
+    (~2e-15), where they say nothing about agreement."""
+    from lpfem_torch import solvers
+    from lpfem_torch.analytic import AiryWave
+    from lpfem_torch.experiments.laplace_conv import run_case
+    from lpfem_torch.mesh import make_wave_tank
+    pcg, xs = solvers.pcg, []
+
+    def keep_x(*a, **k):
+        res = pcg(*a, **k)
+        xs.append(res.x.detach().cpu())
+        return res
+
+    monkeypatch.setattr(solvers, "pcg", keep_x)
+    mesh = make_wave_tank(8, 1, 2)
+    bb0, bb1 = mesh.bounding_box()
+    wave = AiryWave.from_modes(H=0.005, m=2.0, Lx=1.0, h=bb1[2] - bb0[2],
+                               z_top=bb1[2])
+    before = ksep.LAUNCHES_BY_P.get(p, 0)
+    g = run_case(mesh, p, wave, 1e-24, 2000, device=cuda)
+    assert ksep.LAUNCHES_BY_P[p] > before
+    c = run_case(mesh, p, wave, 1e-24, 2000, device="cpu")
+    assert g["dofs"] == c["dofs"] and abs(g["iters"] - c["iters"]) <= 1
+    xg, xc = xs
+    assert xg.dtype == xc.dtype == torch.float64 and xg.shape == xc.shape
+    scale = float(xc.abs().max())
+    assert scale > 0
+    diff = float((xg - xc).abs().max())
+    assert diff <= 1e-12 * scale, (diff, scale)
+    if p <= 8:
+        for k in ("err_inf", "err_l2"):
+            assert abs(g[k] - c[k]) <= 1e-6 * c[k], (k, g[k], c[k])
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_lattices_past_int32(cuda):
+    """B1 and B4 index with 32-bit ints: a lattice of 2^31 dofs or more
+    raises before any launch (2048 x 1025 x 1025 = 2,151,680,000)."""
+    dims = (2048, 1025, 1025)
+    x = torch.empty(dims[::-1], device=cuda, dtype=torch.float32)
+    bands = tuple(torch.zeros(3, D, device=cuda, dtype=torch.float32)
+                  for D in (dims[0], dims[0], dims[1], dims[1], dims[2],
+                            dims[2]))
+    before = ksep.LAUNCHES
+    with pytest.raises(ValueError, match="int sizes"):
+        ksep.sep_apply(x, bands, (True, False, False))
+    assert ksep.LAUNCHES == before
+    xl = torch.empty_like(x)
+    ds_bands = tuple(DS(b, b) for b in bands)
+    before = kds.LAUNCHES
+    with pytest.raises(ValueError, match="int sizes"):
+        kds.sep_apply_ds(x, xl, ds_bands, (True, False, False))
+    assert kds.LAUNCHES == before
+    del x, xl
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 def test_kernel_wrapper_raises_instead_of_falling_back(cuda):
     op = SeparableLattice(_space(True, 2), torch.float32, cuda)
