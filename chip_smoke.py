@@ -6,7 +6,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Device and build: require CUDA, print the card's name and power limit
    (nvidia-smi), build the CUDA kernels from ``lpfem_torch/csrc`` (one nvcc
-   per source, all started together: B1, B2, B3a / B3b, B4) and print the
+   per source, all started together: B1 and its shard mode, B2 and its
+   shard mode, B3a / B3b, B4) and print the
    build time and ptxas's report (registers, spills) per kernel.
 2. Kernels vs plain versions on the card, relative to max|y|: double
    <= 1e-13, float <= 1e-5.
@@ -140,12 +141,46 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    5 T diverge), then resumed from the checkpoint of its step 20 to the
    same bits; ``entry()``'s step against the CPU's, 1e-10.
 
-Phases 3, 4 (float64), 5A, 5B and 6 each profile one more RK4 step with
+9. The sharded path (``lpfem_torch.shard``: shards stacked on one tensor
+   axis of the card), each part with the launch counts set to 0 just
+   before and read just after its run:
+   - 9a: B1's shard mode (``sep_apply_shard``, one launch over every
+     window) on the refs 2 z-slab windows over 4 shards ([4, 33, 33, 512]
+     at p = 4) and 3 (11, 11, 10 layers: a padded top slab, [3, 45, 33,
+     512]) at p = 4, 2, 1, and B2's (``lattice_affine_apply_shard``) at
+     p = 4 on the leaning tank's windows, float and double, the rows
+     ``(zt, own0)`` of the constrained and the unconstrained apply and with
+     own0 flipped, against their plain versions (phase 2's ``TOL``) and
+     twice for the same bits; the sharded apply through the exchange
+     against the unsharded kernel on one global vector (``TOL``). At 4
+     shards: device ms per launch, kernels per apply, the bound, the plain
+     version's ms, the apply through the exchange, and at p = 4 in float
+     the cuSPARSE SpMV of the windows' block-diagonal matrix (assembled on
+     the card from element matrices).
+   - 9b: one RK4 step at refs 2, order 4, mixed, p-multigrid with an
+     h-level, r.z <= rz0*1e-24, over 4 and over 3 shards against the
+     single-device step: max|y| difference <= 1e-8 of max|y|. Then the
+     ss.cpp protocol over 4 shards with ``CFG`` from
+     ``ShardedProblem.from_config`` (set-up on the host): a cold solve (its
+     iterations beside the single-device 8), a warm-up step, 10 steps
+     timed 3 times (median; every stage converged; B1-shard launches by
+     order; peak device memory) and one profiled step.
+   - 9c: phase 5A's leaning tank over 4 shards, one step against the
+     single-device step (1e-8 of max|y|); B2's shard mode must launch.
+   - 9d: ``dryrun_multichip(4)``; ``python -m
+     lpfem_torch.experiments.scaling --mode strong --shards 1 2 4 --orders
+     4 --par-ref 2 --precond pmg --repeats 1`` (table in ``chiprun_out/``;
+     the cold iterations must be the same at every shard count); the
+     diffraction study with ``--shard 4`` for 2 steps against the same
+     run unsharded (rim envelope within 1e-8), B3b launched.
+
+Phases 3, 4 (float64), 5A, 5B, 6 and 9b each profile one more RK4 step with
 torch.profiler, outside the timed window: device kernel time by category and
 the device's busy share. Each phase's own time is printed.
 
 Prints one JSON line describing the kernels (B1's ``orders_on_path``: the
-orders phases 7-8 launched it at), then as the last line
+orders phases 7-8 launched it at; the shard modes' ``launches`` from 9b's
+and 9c's runs), then as the last line
 ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -2057,6 +2092,422 @@ def phase_drivers(report: dict) -> set:
     return orders
 
 
+SHARD_COUNTS = (4, 3)          # z-slabs of 8 layers; 11, 11, 10 (padded)
+SHARD_STEPS = 10                # the timed protocol over 4 shards
+SHARD_REPEATS = 3
+B2_SHARD_KERNEL = ("lattice_affine_kernel", "lattice_affine_fold")
+
+
+def _zero_shard_counts():
+    from lpfem_torch.kernels import lattice_apply, sep_apply
+    sep_apply.LAUNCHES_SHARD = 0
+    sep_apply.LAUNCHES_SHARD_BY_P.clear()
+    lattice_apply.LAUNCHES_SHARD = 0
+    lattice_apply.LAUNCHES_SHARD_BY_P.clear()
+
+
+def _read_shard_counts() -> dict:
+    from lpfem_torch.kernels import lattice_apply, sep_apply
+    return {"sep_apply_shard": sep_apply.LAUNCHES_SHARD,
+            "sep_apply_shard_by_p": dict(sorted(
+                sep_apply.LAUNCHES_SHARD_BY_P.items())),
+            "lattice_affine_apply_shard": lattice_apply.LAUNCHES_SHARD,
+            "lattice_affine_apply_shard_by_p": dict(sorted(
+                lattice_apply.LAUNCHES_SHARD_BY_P.items()))}
+
+
+def _window_csr(lv, elop, dtype):
+    """The stacked windows' local operator (no constraint) as one
+    block-diagonal CSR matrix on the card, from the element matrices of
+    ``elop`` (the same tank in element form), each shard's elements in its
+    window numbering: the cuSPARSE yardstick of the shard kernels."""
+    import types
+
+    import numpy as np
+    import torch
+    pt, w = lv.pt, lv.pt.win
+    ed = np.asarray(elop.space.elem_dofs)
+    z, rem = ed // w["plane"], ed % w["plane"]
+    shard = np.asarray(pt.part)[:, None]
+    loc = (z - w["p"] * np.asarray(w["ez0"])[shard]) * w["plane"] + rem
+    adapter = types.SimpleNamespace(
+        space=types.SimpleNamespace(elem_dofs=shard * (lv.N_max + 1) + loc),
+        device=elop.device, n_dofs=lv.ndev * (lv.N_max + 1),
+        element_matrices=elop.element_matrices)
+    A = _csr_of_elements(adapter, dtype)
+    torch.cuda.empty_cache()
+    return A
+
+
+def phase_sharded_kernels(report: dict) -> dict:
+    """9a: B1's and B2's shard modes against their plain versions on the
+    refs 2 windows over 4 and 3 shards, the sharded apply against the
+    unsharded kernel on one global vector, and their times."""
+    import torch
+    import lpfem_torch
+    from lpfem_torch.kernels import lattice_apply as klat
+    from lpfem_torch.kernels import sep_apply as ksep
+    from lpfem_torch.operators import AffineLatticeLaplace, SeparableLattice
+    from lpfem_torch.shard import Partition, ShardComm, ShardedLevel
+    from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    fine = LatticeSpace.from_config(lpfem_torch.preset("scaling_base", **CFG))
+    lean = CurvedLatticeSpace(_leaning_mesh(), CFG["order"])
+
+    def run(lv, scal, x, p0, plain=False):
+        w = lv.pt.win
+        if lv.mode == "sep":
+            f = (ksep.sep_apply_shard_reference if plain
+                 else ksep.sep_apply_shard)
+            return f(x, lv.bands_xy, lv.zbands, w["periodic"][0], scal, p0,
+                     lv.dims)
+        f = (klat.lattice_affine_apply_shard_reference if plain
+             else klat.lattice_affine_apply_shard)
+        return f(x, lv.C6, lv.w3, lv.B, lv.D, w["dims"],
+                 (w["periodic"][0], False, False), scal, p0)
+
+    def check(lv, tag):
+        dt = str(lv.dtype)[6:]
+        x = torch.randn(lv.ndev, lv.N_max + 1, generator=gen, device="cuda",
+                        dtype=torch.float64).to(lv.dtype)
+        x[:, lv.N_max] = 0.0
+        p0 = torch.randn(lv.ndev, lv.pt.win["plane"], generator=gen,
+                         device="cuda", dtype=torch.float64).to(lv.dtype)
+        flip = lv.scal_c.clone()
+        flip[:, 1] = 1 - flip[:, 1]
+        worst = 0.0
+        for name, scal in (("constrained", lv.scal_c),
+                           ("unconstrained", lv.scal_o), ("own0 flipped", flip)):
+            y, yh = run(lv, scal, x, p0)
+            y2, yh2 = run(lv, scal, x, p0)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(yh, yh2)):
+                raise AssertionError(f"{tag} {name}: two calls differ")
+            y_r, yh_r = run(lv, scal, x, p0, plain=True)
+            abs_err, rel = _rel_err(torch.cat([y, yh], 1),
+                                    torch.cat([y_r, yh_r], 1))
+            if not rel <= TOL[dt]:
+                raise AssertionError(f"{tag} {name}: kernel vs plain "
+                                     f"{rel:.3e} (limit {TOL[dt]:.0e})")
+            worst = max(worst, abs_err)
+        print(f"[9a] {tag} {dt}: kernel = plain within {TOL[dt]:.0e} of "
+              f"max|y| (constrained, unconstrained, own0 flipped), max abs "
+              f"err {worst:.3e}; same bits twice")
+        return x, p0, worst
+
+    def through_exchange(lv, op, tag):
+        """The sharded constrained apply through the exchange against the
+        unsharded kernel on the same global vector."""
+        dt = str(lv.dtype)[6:]
+        xg = torch.randn(op.n_dofs, generator=gen, device="cuda",
+                         dtype=torch.float64).to(lv.dtype)
+        xs = torch.as_tensor(lv.pt.stack_dof(xg.cpu().numpy())).to("cuda")
+        ys = lv.apply_c(xs)
+        yg = op.constrained_apply_top(xg)
+        torch.cuda.synchronize()
+        got = torch.as_tensor(lv.pt.unstack_dof(ys.cpu().numpy())).to("cuda")
+        _, rel = _rel_err(got, yg)
+        if not rel <= TOL[dt]:
+            raise AssertionError(f"{tag}: sharded apply vs unsharded "
+                                 f"{rel:.3e}")
+        print(f"[9a] {tag} {dt}: sharded apply through the {lv.exchange} "
+              f"exchange = unsharded kernel within {rel:.3e} of max|y|")
+        return rel
+
+    def timed(lv, x, p0, tag, kernel, bound, lib=None):
+        dt = str(lv.dtype)[6:]
+        fn = lambda v, q: run(lv, lv.scal_c, v, q)         # noqa: E731
+        ms = _time_chain(fn, [(x, p0)])
+        acts = _profile_calls(fn, [(x, p0)])
+        dev = _device_ms(fn, [(x, p0)], kernel, acts)
+        act = _per_call(acts)
+        # the plain version takes ~1e2 x the kernel's time: one chain
+        plain = _time_chain(lambda v, q: run(lv, lv.scal_c, v, q,
+                                             plain=True), [(x, p0)], reps=1)
+        apply_ms = _time_chain(lambda v: lv.apply_c(v), [(x,)])
+        # device ms per apply: each kernel's mean per recorded launch,
+        # summed (the profiler drops launches, up to most of a window)
+        row = dict(tag=tag, dtype=dt, ndev=lv.ndev, p=lv.op.p,
+                   window=[lv.ndev, *lv.pt.win["dims"]],
+                   window_dofs=[lv.ndev, lv.pt.win["Dz_win"],
+                                lv.pt.win["Dy"], lv.pt.win["Dx"]],
+                   ms=act["launch_ms"] or dev or ms, call_ms=ms,
+                   device_ms_over_calls=dev, launch_ms=act["launch_ms"],
+                   launches_per_apply=len(act["kernels"]),
+                   kernels_per_call_recorded=act["kernels_per_call"],
+                   plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+                   library_ms=None, apply_through_exchange_ms=apply_ms)
+        if lib is not None:
+            # the materialised windows through the matrix, their outputs
+            # assembled through the exchange: the sharded unconstrained apply
+            A = _window_csr(lv, lib, lv.dtype)
+            xw = torch.cat([lv.window(x).reshape(lv.ndev, -1),
+                            x.new_zeros(lv.ndev, 1)], 1).reshape(-1)
+            yw = (A @ xw).view(lv.ndev, -1)[:, : lv.N_max]
+            _, rel = _rel_err(lv.unwindow(yw), lv.apply_own(x))
+            row["library_ms"] = _time_chain(lambda v: A @ v, [(xw,)])
+            row["library_device_ms"] = _device_ms(lambda v: A @ v, [(xw,)],
+                                                  None)
+            row["library_nnz"] = int(A.values().numel())
+            row["library_vs_kernel"] = rel
+            del A
+            torch.cuda.empty_cache()
+        print(f"[9a] time {tag} {dt}: {row['ms']:.4f} ms per apply on the "
+              f"device ({len(act['kernels'])} kernel(s) per apply, "
+              f"{act['kernels_per_call']:.2f} launches per call recorded; "
+              f"{ms:.4f} ms per call with the host), plain "
+              f"{plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), the "
+              f"apply through the exchange {apply_ms:.4f} ms per call"
+              + (f", cuSPARSE SpMV of the windows' matrix "
+                 f"{row['library_ms']:.4f} ms ({row['library_nnz']} "
+                 f"nonzeros; assembled through unwindow, vs the sharded "
+                 f"apply {row['library_vs_kernel']:.2e} of max|y|)"
+                 if lib is not None else ""))
+        return row
+
+    rows = {"sep_apply_shard": [], "lattice_affine_apply_shard": []}
+    worst = dict.fromkeys(rows, 0.0)
+    for ndev in SHARD_COUNTS:
+        comm = ShardComm(ndev)
+        pt = Partition(fine, ndev)
+        print(f"[9a] {ndev} shards: layers {list(pt.win['nlay'])}, window "
+              f"{pt.win['Dz_win']} x {pt.win['Dy']} x {pt.win['Dx']} at "
+              f"p = 4, exchange tables of {pt.NS} interface dofs")
+        for p in (4, 2, 1):
+            sp = fine if p == 4 else fine.with_order(p)
+            ptp = pt if p == 4 else Partition(sp, ndev, part=pt.part)
+            for dtype in (torch.float32, torch.float64):
+                op = SeparableLattice(sp, dtype, "cuda")
+                lv = ShardedLevel(op, ptp, sp.top_plane_dofs(), comm, "cuda")
+                tag = f"B1-shard {ndev} shards p={p}"
+                x, p0, err = check(lv, tag)
+                worst["sep_apply_shard"] = max(worst["sep_apply_shard"], err)
+                if p == 4:
+                    through_exchange(lv, op, tag)
+                Dx, Dy, Dz = lv.dims
+                n, R = ndev * Dx * Dy * Dz, 2 * p + 1
+                nbytes = x.element_size() * (
+                    2 * n + 2 * ndev * Dx * Dy + 4 * R * (Dx + Dy)
+                    + 2 * ndev * R * Dz)
+                bound = _bound(nbytes, 2 * 7 * R * n,
+                               PEAK_FLOPS[str(dtype)[6:]])
+                if ndev != SHARD_COUNTS[0]:
+                    continue                  # timed at the protocol's 4
+                lib = None
+                if p == 4 and dtype == torch.float32:
+                    lib = AffineLatticeLaplace(
+                        CurvedLatticeSpace(_plain_mesh(), 4), dtype, "cuda")
+                row = timed(lv, x, p0, tag, B1_KERNEL, bound, lib)
+                row["max_abs_err"] = err
+                rows["sep_apply_shard"].append(row)
+        lpt = Partition(lean, ndev)
+        for dtype in (torch.float32, torch.float64):
+            op = AffineLatticeLaplace(lean, dtype, "cuda")
+            lv = ShardedLevel(op, lpt, lean.top_plane_dofs(), comm, "cuda")
+            if lv.mode != "affine":
+                raise AssertionError(f"the leaning tank's level is {lv.mode}")
+            tag = f"B2-shard {ndev} shards p=4"
+            x, p0, err = check(lv, tag)
+            worst["lattice_affine_apply_shard"] = max(
+                worst["lattice_affine_apply_shard"], err)
+            through_exchange(lv, op, tag)
+            w = lpt.win
+            n = ndev * w["Dz_win"] * w["plane"]
+            ne = ndev * w["dims"][0] * w["dims"][1] * w["dims"][2]
+            nbytes = x.element_size() * (2 * n + 2 * ndev * w["plane"]
+                                         + 6 * ne)
+            bound = _bound(nbytes, _element_flops(ne, 5, 5, affine=True),
+                           PEAK_FLOPS[str(dtype)[6:]])
+            if ndev != SHARD_COUNTS[0]:
+                continue
+            lib = op if dtype == torch.float32 else None
+            row = timed(lv, x, p0, tag, B2_SHARD_KERNEL, bound, lib)
+            row["max_abs_err"] = err
+            rows["lattice_affine_apply_shard"].append(row)
+    report["shard_kernels"] = rows
+    report["shard_kernels_max_abs_err"] = worst
+    pick = {k: dict(next(r for r in v if r["p"] == 4
+                         and r["dtype"] == "float32"), max_abs_err=worst[k])
+            for k, v in rows.items()}
+    return pick
+
+
+def phase_sharded_path(report: dict) -> dict:
+    """9b: rank invariance at the protocol's size, then the timed ss.cpp
+    protocol over 4 shards."""
+    import torch
+    import lpfem_torch
+    from lpfem_torch.shard import ShardedProblem
+
+    cfg = lpfem_torch.preset("scaling_base", **{**CFG, "cg_rtol_sq": 1e-24})
+    prob = lpfem_torch.Problem(cfg, device="cuda")
+    _, y1, _ = prob.run(n_steps=1)
+    scale = float(y1.abs().max())
+    out = {}
+    for ndev in SHARD_COUNTS:
+        t0 = time.perf_counter()
+        sprob = ShardedProblem(prob, ndev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        _, y, phi = sprob.run(n_steps=1)
+        sprob.check_state(y, phi)
+        d = float((y - y1).abs().max())
+        levels = [f"{lv.op.space.dof_dims} {lv.mode}/"
+                  f"{'window' if lv.pt.win else 'compact'}"
+                  for lv in sprob.pmg.levels]
+        print(f"[9b] {ndev} shards (set-up {setup:.2f} s; levels {levels}): "
+              f"one RK4 step at r.z <= rz0*1e-24, max|y_sharded - y_single| "
+              f"{d:.3e} of max|y| {scale:.3e} (limit 1e-8 of it); "
+              f"{sprob.last_solver_stats.total_iters} inner iterations "
+              f"against {prob.last_solver_stats.total_iters} single-device")
+        if not d <= 1e-8 * scale or sprob.last_solver_stats.unconverged:
+            raise AssertionError(f"{ndev} shards: {d} ({sprob.last_solver_stats})")
+        out[f"invariance_{ndev}"] = dict(max_abs_diff=d, scale=scale,
+                                         setup_s=setup, levels=levels)
+    del prob, sprob
+    torch.cuda.empty_cache()
+
+    cfg = lpfem_torch.preset("scaling_base", **CFG)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sprob = ShardedProblem.from_config(cfg, 4, device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    n = sprob.prob.space.n_dofs
+    y0, phi0 = sprob.initial_state()
+    _, cold = sprob.solve_laplace(y0[sprob.NSurf:], phi0)
+    print(f"[9b] protocol over 4 shards: set-up on the host {setup:.2f} s "
+          f"(lambda_max through the sharded operators {sprob.pmg.lmax}); "
+          f"cold solve {cold.iters} inner CG iterations (single device: "
+          f"{EXPECTED_COLD_ITERS}; the sharded p-multigrid's coarsest level "
+          f"is Chebyshev-16 where the single-device one inverts it), "
+          f"converged={cold.converged}")
+    if not cold.converged:
+        raise AssertionError("the sharded cold solve did not converge")
+    sprob.run(n_steps=1, state=(y0, phi0))                   # warm-up
+    torch.cuda.synchronize()
+    walls, counts = [], None
+    for _ in range(SHARD_REPEATS):
+        _zero_counts()
+        _zero_shard_counts()
+        t0 = time.perf_counter()
+        t, y, phi = sprob.run(n_steps=SHARD_STEPS, state=(y0, phi0))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = {**_read_counts(), **_read_shard_counts()}
+        stats = sprob.last_solver_stats
+        sprob.check_state(y, phi)
+        if stats.unconverged or stats.n_solves != 4 * SHARD_STEPS:
+            raise AssertionError(f"a timed stage did not converge: {stats}")
+        if counts["sep_apply_shard"] <= 0:
+            raise AssertionError("the sharded path launched no B1-shard")
+    wall = statistics.median(walls)
+    rate = n * 4 * SHARD_STEPS / wall
+    by_p = {p: c / SHARD_STEPS
+            for p, c in counts["sep_apply_shard_by_p"].items()}
+    print(f"[9b] {SHARD_STEPS} RK4 steps over 4 shards: wall median "
+          f"{wall:.3f} s of {[round(w, 3) for w in walls]}, {rate:.4e} "
+          f"dof*solves/s, every timed stage converged, "
+          f"{stats.total_iters} inner CG iterations, {stats.syncs} host "
+          f"syncs; B1-shard launches per RK4 step by order {by_p}; peak "
+          f"device memory {_gib(torch.cuda.max_memory_allocated())}")
+    prof = _profile_step(sprob, (y0, phi0), 0.0)
+    prof["busy_share_unprofiled"] = prof["device_ms"] / (
+        1e3 * wall / SHARD_STEPS)
+    _print_profile("[9b]", prof)
+    out.update(setup_s=setup, cold_iters=cold.iters, walls_s=walls,
+               wall_s=wall, dof_solves_per_s=rate,
+               total_inner_iters=stats.total_iters, syncs=stats.syncs,
+               launches=counts, b1_shard_calls_per_step_by_p=by_p,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               profile=prof, lmax=sprob.pmg.lmax, dofs=n)
+    report["shard_path"] = out
+    return out
+
+
+def phase_sharded_lean(report: dict) -> dict:
+    """9c: the leaning tank of phase 5A over 4 shards, one step against the
+    single-device step; B2's shard mode must launch."""
+    import torch
+    import lpfem_torch
+    from lpfem_torch.shard import ShardedProblem
+
+    cfg = lpfem_torch.preset("scaling_base", **{**CFG, "cg_rtol_sq": 1e-24},
+                             **LEAN)
+    prob = lpfem_torch.Problem(cfg, device="cuda", mesh=_leaning_mesh())
+    _, y1, _ = prob.run(n_steps=1)
+    sprob = ShardedProblem(prob, 4)
+    modes = [lv.mode for lv in sprob.pmg.levels]
+    _zero_shard_counts()
+    _, y, phi = sprob.run(n_steps=1)
+    torch.cuda.synchronize()
+    counts = _read_shard_counts()
+    sprob.check_state(y, phi)
+    d = float((y - y1).abs().max())
+    scale = float(y1.abs().max())
+    print(f"[9c] leaning tank over 4 shards (levels {modes}): max|y_sharded "
+          f"- y_single| {d:.3e} of max|y| {scale:.3e} (limit 1e-8 of it); "
+          f"launches {counts}")
+    if not d <= 1e-8 * scale or sprob.last_solver_stats.unconverged:
+        raise AssertionError(f"leaning tank: {d} ({sprob.last_solver_stats})")
+    if counts["lattice_affine_apply_shard"] <= 0:
+        raise AssertionError("the leaning tank launched no B2-shard")
+    report["shard_lean"] = dict(max_abs_diff=d, scale=scale, modes=modes,
+                                launches=counts)
+    return report["shard_lean"]
+
+
+def phase_sharded_drivers(report: dict) -> dict:
+    """9d: dryrun_multichip(4), the strong-scaling driver over 1, 2, 4
+    shards, and the diffraction study over 4 shards for 2 steps."""
+    import numpy as np
+    from lpfem_torch.entry import dryrun_multichip
+    from lpfem_torch.experiments import diffraction, scaling
+    from lpfem_torch.kernels import pa_apply
+
+    out = {"dryrun": dryrun_multichip(4)}
+    table = "chiprun_out/strong-scaling-torch.txt"
+    Path(table).unlink(missing_ok=True)
+    rows = scaling.main(["--mode", "strong", "--shards", "1", "2", "4",
+                         "--orders", "4", "--par-ref", "2", "--precond",
+                         "pmg", "--repeats", "1", "--out", table])
+    cold = [r["cold_iters"] for r in rows]
+    print(f"[9d] scaling rows: cold iterations by shards {cold} (the bench "
+          f"on one device: {EXPECTED_COLD_ITERS}); walls "
+          f"{[round(r['median_wall_s'], 3) for r in rows]} s")
+    if len(set(cold)) != 1 or not all(r["converged"] for r in rows):
+        raise AssertionError(f"scaling rows differ: {rows}")
+    out["scaling"] = rows
+
+    steps, res = 2, {}
+    for shard in (0, 4):
+        tag = f"shard{shard}"
+        n0 = pa_apply.LAUNCHES
+        res[shard] = diffraction.main([
+            "--nsteps", str(steps), "--periods", str(steps / 35),
+            "--shard", str(shard), "--out",
+            f"chiprun_out/cylinder-diffraction-{tag}.txt", "--out-exact",
+            "chiprun_out/cylinder_boundary-torch.txt", "--compare", ""])
+        res[shard]["b3b_launches"] = pa_apply.LAUNCHES - n0
+        res[shard]["rim"] = np.loadtxt(
+            f"chiprun_out/cylinder-diffraction-{tag}.txt", ndmin=2)
+    a, b = res[0]["rim"], res[4]["rim"]
+    d = float(np.max(np.abs(a[:, 1] - b[:, 1])))
+    scale = float(np.max(np.abs(a[:, 1])))
+    print(f"[9d] diffraction --shard 4, {steps} steps: rim envelope within "
+          f"{d:.3e} of the single-device run's (max {scale:.3e}; limit 1e-8 "
+          f"of it), B3b launches {res[4]['b3b_launches']}")
+    if (not np.array_equal(a[:, 0], b[:, 0]) or not d <= 1e-8 * scale
+            or res[4]["unconverged"] or res[4]["b3b_launches"] <= 0):
+        raise AssertionError(f"diffraction --shard 4: {d}, {res[4]}")
+    out["diffraction"] = dict(max_abs_diff=d, scale=scale,
+                              b3b_launches=res[4]["b3b_launches"],
+                              wall_s={k: v["wall_s"] for k, v in res.items()})
+    report["shard_drivers"] = out
+    return out
+
+
 def main() -> int:
     import warnings
     # torch's notes that sparse CSR is beta / unchecked (the yardsticks)
@@ -2091,6 +2542,10 @@ def main() -> int:
     bench_rows = timed("7 bench twin", phase_bench)
     orders = sorted(timed("8 drivers", phase_drivers)
                     | set(bench_rows["refs2"]["launches"]["sep_apply_by_p"]))
+    shard_k = timed("9a sharded kernels", phase_sharded_kernels)
+    shard = timed("9b sharded path", phase_sharded_path)
+    lean = timed("9c sharded leaning tank", phase_sharded_lean)
+    timed("9d sharded drivers", phase_sharded_drivers)
     report["total_s"] = time.perf_counter() - t_start
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"total {report['total_s']:.1f} s")
@@ -2140,7 +2595,24 @@ def main() -> int:
              launches_per_call=ds["launches_per_call"], redesigned=True,
              bound_counts=ds["bound_counts"], b1_f64_ms=ds["b1_f64_ms"],
              spmv_f64_ms=ds["spmv_f64_ms"],
-             **{k: ds[k] for k in keys})]}
+             **{k: ds[k] for k in keys}),
+        dict(name="sep_apply_shard", route="cuda",
+             source="lpfem_torch/csrc/sep_apply.cu",
+             replaces="lpfem/kernels/sep_apply.py:238",
+             launches=shard["launches"]["sep_apply_shard"],
+             launches_per_step_by_p=shard["b1_shard_calls_per_step_by_p"],
+             window=shard_k["sep_apply_shard"]["window_dofs"],
+             launches_per_apply=shard_k["sep_apply_shard"][
+                 "launches_per_apply"],
+             **{k: shard_k["sep_apply_shard"][k] for k in keys}),
+        dict(name="lattice_affine_apply_shard", route="cuda",
+             source="lpfem_torch/csrc/lattice_apply.cu",
+             replaces="lpfem/kernels/lattice_apply.py:245",
+             launches=lean["launches"]["lattice_affine_apply_shard"],
+             window=shard_k["lattice_affine_apply_shard"]["window_dofs"],
+             launches_per_apply=shard_k["lattice_affine_apply_shard"][
+                 "launches_per_apply"],
+             **{k: shard_k["lattice_affine_apply_shard"][k] for k in keys})]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,10 +29,14 @@ reader can find each counterpart:
     surface    free-surface right-hand side, relaxation zones
     timestep   RK4 with the non-finite freeze guard and a record hook
     problem    Config (+ mesh) -> operators -> time loop
+    shard      the sharded solver: z-slab / owner-major partitions, the halo
+               exchange, B1's and B2's shard modes, the sharded
+               p-multigrid and RK4 loop, shards stacked on one device
     io         VTU / PVD output, data files, checkpoints (NumPy)
     profiling  phase timer, torch.profiler trace, finite-state check
     bench      the headline benchmark (``python -m lpfem_torch.bench``)
-    entry      one RK4 step of the flagship model, ``(fn, example_args)``
+    entry      one RK4 step of the flagship model, ``(fn, example_args)``;
+               ``dryrun_multichip``, the sharded step against the unsharded
     experiments.diffraction    the wave-cylinder diffraction study
     experiments.leaning_tank   the periodic tank meshed with sheared elements
     experiments.solve_profile  per-component times of one RK4 stage
@@ -41,6 +45,7 @@ reader can find each counterpart:
     experiments.pf_conv        time-dependent p- and h-convergence
     experiments.pf_run         any preset, with ParaView output and
                                checkpoint / resume
+    experiments.scaling        strong / weak scaling over the shard count
 
 Device and dtype policy: every constructor takes an explicit ``device``;
 ``dtype="mixed"`` keeps the state and the outer residual in float64 and runs

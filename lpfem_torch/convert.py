@@ -21,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["surface_permutation", "surface_map", "assert_same_numbering",
-           "state_from_lpfem", "state_to_lpfem", "smoother_lmax"]
+           "state_from_lpfem", "state_to_lpfem", "sharded_state_from_lpfem",
+           "smoother_lmax"]
 
 
 def surface_map(surf_to_vol_lpfem, surf_to_vol_port) -> np.ndarray:
@@ -84,8 +85,25 @@ def state_to_lpfem(y, phi, surf_to_vol, dof_dims):
     return np.concatenate([y[perm], y[ns + perm]]), _copy_phi(phi)
 
 
+def sharded_state_from_lpfem(y, phi_stacked, surf_to_vol, dof_dims=None):
+    """(y, phi_stacked) of ``lpfem.shard.ShardedProblem`` -> the port's:
+    ``y`` in this package's surface order (as :func:`state_from_lpfem`; on
+    an ``H1Space`` pass ``dof_dims=None``, the orders agree) and a copy of
+    the stacked potential ``[ndev, N_max+1]``, whose layout is the same in
+    both (``lpfem_torch.shard.Partition`` has lpfem's tables), for
+    ``lpfem_torch.shard.ShardedProblem.run(state=...)``."""
+    phi = np.array(phi_stacked)
+    if phi.ndim != 2:
+        raise ValueError("expected a stacked [ndev, N_max+1] potential")
+    if dof_dims is None:
+        return np.array(y), phi
+    y, _ = state_from_lpfem(y, np.zeros(0), surf_to_vol, dof_dims)
+    return y, phi
+
+
 def smoother_lmax(pmg) -> list[float]:
-    """Per-level lambda_max of an ``lpfem.multigrid.PMultigrid``, read back
-    from its Chebyshev smoothers (``theta + delta``), for
-    ``lpfem_torch.multigrid.PMultigrid(lmax=...)``."""
+    """Per-level lambda_max of an ``lpfem.multigrid.PMultigrid`` or
+    ``lpfem.shard.ShardedPMG``, read back from its Chebyshev smoothers
+    (``theta + delta``), for ``lpfem_torch.multigrid.PMultigrid(lmax=...)``
+    or ``lpfem_torch.shard.ShardedProblem(lmax=...)``."""
     return [float(sm.theta + sm.delta) for sm in pmg.smoothers]

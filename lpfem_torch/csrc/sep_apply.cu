@@ -14,9 +14,24 @@
 //   y:  a  = My t1 + Ky t2,   b  = My t2
 //   z:  y  = Mz a  + Kz b
 //
-// ess_top gives identity rows and columns on the top z-plane (the free-surface
-// Dirichlet set): the x contraction reads that plane of u as zero, and y's top
-// plane is x's.
+// A Dirichlet plane zt (the top z-plane of one lattice under ess_top, -1 for
+// none) gives identity rows and columns there: the x contraction reads that
+// plane of u as zero, and y's plane zt is x's.
+//
+// Shard mode (the port of the TPU kernel's shard_scal / p0 mode, which
+// lpfem.shard runs on every window level): the launch covers ndev z-slab
+// windows stacked on a leading axis, x and y rows of ys >= Dz*Dx*Dy values
+// (lanes past the window are written 0), each window with its own z bands
+// (assembled from the slab's own element layers, zero on padding layers)
+// and its row of scal = (zt, own0): zt the local Dirichlet plane or -1, own0
+// whether the shard owns its window's plane 0. When own0 is 0, plane 0 reads
+// the exchanged halo plane p0 instead of x, and its outputs go to yhalo with
+// y's plane 0 set to 0; otherwise yhalo is 0. On a padded slab zt lies below
+// the window's top: the planes above it have zero bands and produce 0. The
+// windows' blocks form one grid (the z-chunks sized for all of them), so an
+// apply over every shard is one launch; rows of N_max+1 values leave shards
+// 1..ndev-1 off 16-byte alignment, and their tiles take the 4- or 8-byte
+// copies. Times: PERF.md section 6 (chip_smoke.py phase 9a).
 //
 // One launch per apply, no scratch in device memory, no atomics. A block owns
 // the outputs of a Tx x Ty tile of (x, y) columns over the z-chunk
@@ -26,9 +41,9 @@
 //   1. copies the plane's u rows (Ty+2p) x (Tx+2p) into shared memory with
 //      cp.async, three planes in flight (plane z+2 is fetched while plane z
 //      is contracted; 16-byte vectors where the tile's rows lie inside the
-//      lattice and x is 16-byte aligned). x wraps on a periodic axis and reads zero past the ends
-//      otherwise; y reads zero past the ends; under ess_top the top plane
-//      reads zero;
+//      lattice and the plane is 16-byte aligned). x wraps on a periodic axis
+//      and reads zero past the ends otherwise; y reads zero past the ends;
+//      the Dirichlet plane reads zero;
 //   2. contracts x into t1, t2 [(Ty+2p) x Tx] in shared memory;
 //   3. contracts y: each thread owns one output column (x, y) and pushes its
 //      a, b into a ring of the last 2p+1 planes held in its registers;
@@ -70,7 +85,8 @@
 // (chip_smoke.py phase 2): 0.0625 ms float, 0.1010 ms double at p = 4
 // (the three passes it replaces: 0.1138 / 0.1296). PERF.md section 6.
 //
-// Plain C interface (one entry per dtype), built with
+// Plain C interface (one entry per dtype for one lattice, one per dtype for
+// shard mode), built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // Each entry launches one kernel on the given stream, does not synchronise,
@@ -111,14 +127,27 @@ struct TileSmem {
   }
 };
 
+// The launch's lattices: one (scal null: zt from the caller, own0 = 1) or
+// ndev stacked z-slab windows (blockIdx.z = shard * nzc + z-chunk).
+template <typename T>
+struct Shards {
+  const int* scal;     // [ndev][2] (zt, own0) on the device, or null
+  const T* p0;         // halo planes, row stride p0s (read where own0 == 0)
+  T* yhalo;            // [ndev][Dx*Dy] plane-0 outputs (shard mode)
+  long long xs, ys;    // row strides of x and y
+  long long p0s, zbs;  // row strides of p0 and of the z bands (0: shared)
+  int nzc;             // z-chunks per lattice
+  int zt;              // the Dirichlet plane when scal is null (-1: none)
+};
+
 template <typename T, int P>
 __global__ void __launch_bounds__(max_threads<T>(), kMinBlocks)
 sep_tile_kernel(const T* __restrict__ x, T* __restrict__ y,
                 const T* __restrict__ kx, const T* __restrict__ mx,
                 const T* __restrict__ ky, const T* __restrict__ my,
                 const T* __restrict__ kz, const T* __restrict__ mz, int Dx,
-                int Dy, int Dz, int p_, int periodic_x, int ess_top, int Tx,
-                int Ty, int Tz, int S) {
+                int Dy, int Dz, int p_, int periodic_x, int Tx, int Ty, int Tz,
+                int S, Shards<T> sh) {
   constexpr int MR = P > 0 ? 2 * P + 1 : 2 * kMaxP + 1;   // register extents
   const int p = P > 0 ? P : p_;
   const int R = 2 * p + 1;
@@ -127,7 +156,19 @@ sep_tile_kernel(const T* __restrict__ x, T* __restrict__ y,
   const int plane = Dx * Dy;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int c = tid % Tx, ty = tid / Tx;
-  const int x0 = blockIdx.x * Tx, y0 = blockIdx.y * Ty, z0 = blockIdx.z * Tz;
+  const int d = blockIdx.z / sh.nzc, zc = blockIdx.z - d * sh.nzc;
+  const int x0 = blockIdx.x * Tx, y0 = blockIdx.y * Ty, z0 = zc * Tz;
+  x += d * sh.xs;
+  y += d * sh.ys;
+  kz += d * sh.zbs;
+  mz += d * sh.zbs;
+  int zt = sh.zt, own0 = 1;
+  if (sh.scal != nullptr) {
+    zt = sh.scal[2 * d];
+    own0 = sh.scal[2 * d + 1];
+  }
+  // plane 0's source: the exchanged halo plane where the shard does not own it
+  const T* x0src = own0 ? x : sh.p0 + d * sh.p0s;
   const int gx = x0 + c, gy = y0 + ty;
   const bool col = ty < Ty && gx < Dx;        // runs the x contraction
   const bool out = col && gy < Dy;            // owns an output column
@@ -143,12 +184,18 @@ sep_tile_kernel(const T* __restrict__ x, T* __restrict__ y,
   int* rowoff = reinterpret_cast<int*>(smem_raw + lay.rowoff);
   int* src = reinterpret_cast<int*>(smem_raw + lay.src);  // plane offset or -1
   // whether the tile's rows lie inside the lattice (no wrap, no edge) and
-  // are whole 16-byte vectors from a 16-byte aligned x: then they are
+  // are whole 16-byte vectors from a 16-byte aligned plane: then they are
   // copied as such
   constexpr int kV = 16 / sizeof(T);
-  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && x0 - p >= 0 &&
-                   x0 + Tx + p <= Dx && (x0 - p) % kV == 0 && W % kV == 0 &&
-                   S % kV == 0 && Dx % kV == 0;
+  const bool vec = x0 - p >= 0 && x0 + Tx + p <= Dx && (x0 - p) % kV == 0 &&
+                   W % kV == 0 && S % kV == 0 && Dx % kV == 0;
+  const bool vec_x = vec && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_0 = vec && reinterpret_cast<uintptr_t>(x0src) % 16 == 0;
+  // lanes of y's row past the lattice (the trash lane of a stacked vector)
+  if (blockIdx.x == 0 && blockIdx.y == 0 && zc == 0) {
+    for (long long k = (long long)Dz * plane + tid; k < sh.ys; k += nt)
+      y[k] = T(0);
+  }
 
   // The tile's u values i = r * W + j (row r, column j): their offset in a
   // plane, or -1 outside the lattice (x wraps on a periodic axis).
@@ -191,14 +238,15 @@ sep_tile_kernel(const T* __restrict__ x, T* __restrict__ y,
   // Asynchronous copies (cp.async) of plane z's u rows into stage buf, and
   // of the z bands of output plane z - p where the chunk emits it; one
   // commit group per plane, also when it copies nothing. The positions
-  // outside the lattice keep the zeros written above; the top plane under
-  // ess_top is filled with zeros.
+  // outside the lattice keep the zeros written above; the Dirichlet plane
+  // is filled with zeros.
   auto fetch = [&](int z, int buf) {
-    if (z <= zhi && z < Dz && vec) {
+    const T* xsrc = z == 0 ? x0src : x + z * plane;
+    if (z <= zhi && z < Dz && (z == 0 ? vec_0 : vec_x)) {
       // interior tile: each u row is W/kV aligned 16-byte vectors
-      const size_t zfill = (ess_top && z == Dz - 1) ? 16 : 0;
+      const size_t zfill = z == zt ? 16 : 0;
       T* dst = ub + buf * H * S;
-      const T* xz = x + z * plane + x0 - p;
+      const T* xz = xsrc + x0 - p;
       const int nv = W / kV;
       for (int i = tid; i < H * nv; i += nt) {
         const int r = i / nv, v = i - r * nv;
@@ -208,9 +256,9 @@ sep_tile_kernel(const T* __restrict__ x, T* __restrict__ y,
                                   zfill);
       }
     } else if (z <= zhi && z < Dz) {
-      const size_t zfill = (ess_top && z == Dz - 1) ? sizeof(T) : 0;
+      const size_t zfill = z == zt ? sizeof(T) : 0;
       T* dst = ub + buf * H * S;
-      const T* xz = x + z * plane;
+      const T* xz = xsrc;
       int r = tid / W, j = tid - r * W;          // i = r * W + j
       const int dr = nt / W, dj = nt - dr * W;
       for (int i = tid; i < H * W; i += nt) {
@@ -313,9 +361,10 @@ sep_tile_kernel(const T* __restrict__ x, T* __restrict__ y,
     // z: y = Mz a + Kz b for plane zo = z - p
     const int zo = z - p;
     if (zo >= z0 && out) {
-      const int i = zo * plane + gy * Dx + gx;
-      if (ess_top && zo == Dz - 1) {
-        y[i] = x[i];
+      const int j = gy * Dx + gx, i = zo * plane + j;
+      T v;
+      if (zo == zt) {
+        v = x[i];                   // identity row (zt >= 1: x is its source)
       } else {
         const T* bz = zb + cur * 2 * R;
         T ya = T(0), yb = T(0);
@@ -326,7 +375,14 @@ sep_tile_kernel(const T* __restrict__ x, T* __restrict__ y,
             yb += bz[R + k] * rb[k];
           }
         }
-        y[i] = ya + yb;
+        v = ya + yb;
+      }
+      if (sh.scal != nullptr && zo == 0) {
+        // plane 0: kept where the shard owns it, else routed to yhalo
+        sh.yhalo[d * plane + j] = own0 ? T(0) : v;
+        y[i] = own0 ? v : T(0);
+      } else {
+        y[i] = v;
       }
     }
     __pipeline_wait_prior(1);        // plane z+1 has landed
@@ -338,32 +394,39 @@ sep_tile_kernel(const T* __restrict__ x, T* __restrict__ y,
 template <typename T, int P>
 int launch(const T* x, T* y, const T* kx, const T* mx, const T* ky,
            const T* my, const T* kz, const T* mz, int Dx, int Dy, int Dz,
-           int p, int periodic_x, int ess_top, int Tx, int Ty, int Tz, int S,
-           int smem, cudaStream_t st) {
+           int p, int periodic_x, int Tx, int Ty, int Tz, int S, int smem,
+           int ndev, Shards<T> sh, cudaStream_t st) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         sep_tile_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((Dx + Tx - 1) / Tx, (Dy + Ty - 1) / Ty, (Dz + Tz - 1) / Tz);
+  sh.nzc = (Dz + Tz - 1) / Tz;
+  const dim3 grid((Dx + Tx - 1) / Tx, (Dy + Ty - 1) / Ty, ndev * sh.nzc);
   const int threads = ((Tx * Ty + 31) / 32) * 32;
   sep_tile_kernel<T, P><<<grid, threads, smem, st>>>(
-      x, y, kx, mx, ky, my, kz, mz, Dx, Dy, Dz, p, periodic_x, ess_top, Tx,
-      Ty, Tz, S);
+      x, y, kx, mx, ky, my, kz, mz, Dx, Dy, Dz, p, periodic_x, Tx, Ty, Tz, S,
+      sh);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* x, void* y, const void* kx, const void* mx,
              const void* ky, const void* my, const void* kz, const void* mz,
-             int Dx, int Dy, int Dz, int p, int periodic_x, int ess_top,
-             int Tx, int Ty, int Tz, int S, int smem, void* stream) {
+             int Dx, int Dy, int Dz, int p, int periodic_x, int Tx, int Ty,
+             int Tz, int S, int smem, int ndev, const Shards<T>& sh,
+             void* stream) {
+  const long long n = (long long)Dx * Dy * Dz;
   if (p < 1 || p > kMaxP || Tx < 1 || Ty < 1 || Tz < 1 ||
       Tx * Ty > max_threads<T>() || S < Tx + 2 * p ||
-      (periodic_x && Dx <= 2 * p) || smem != TileSmem<T>(p, Tx, Ty, S).total)
+      (periodic_x && Dx <= 2 * p) || smem != TileSmem<T>(p, Tx, Ty, S).total ||
+      ndev < 1 || sh.xs < n || sh.ys < n || sh.zt >= Dz ||
+      (sh.scal != nullptr && (sh.p0 == nullptr || sh.yhalo == nullptr ||
+                              sh.p0s < (long long)Dx * Dy)) ||
+      (long long)ndev * ((Dz + Tz - 1) / Tz) > 65535)
     return (int)cudaErrorInvalidValue;
-  if ((long long)Dx * Dy * Dz <= 0) return 0;
+  if (n <= 0) return 0;
   const T* a[6] = {static_cast<const T*>(kx), static_cast<const T*>(mx),
                    static_cast<const T*>(ky), static_cast<const T*>(my),
                    static_cast<const T*>(kz), static_cast<const T*>(mz)};
@@ -372,7 +435,7 @@ int dispatch(const void* x, void* y, const void* kx, const void* mx,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LPFEM_SEP_LAUNCH(PP)                                                 \
   launch<T, PP>(xx, yy, a[0], a[1], a[2], a[3], a[4], a[5], Dx, Dy, Dz, p,  \
-                periodic_x, ess_top, Tx, Ty, Tz, S, smem, st)
+                periodic_x, Tx, Ty, Tz, S, smem, ndev, sh, st)
   switch (p) {
     case 1: return LPFEM_SEP_LAUNCH(1);
     case 2: return LPFEM_SEP_LAUNCH(2);
@@ -380,6 +443,36 @@ int dispatch(const void* x, void* y, const void* kx, const void* mx,
     default: return LPFEM_SEP_LAUNCH(0);
   }
 #undef LPFEM_SEP_LAUNCH
+}
+
+// One lattice: ess_top makes its top plane the Dirichlet plane.
+template <typename T>
+int one_lattice(const void* x, void* y, const void* kx, const void* mx,
+                const void* ky, const void* my, const void* kz,
+                const void* mz, int Dx, int Dy, int Dz, int p, int periodic_x,
+                int ess_top, int Tx, int Ty, int Tz, int S, int smem,
+                void* stream) {
+  const long long n = (long long)Dx * Dy * Dz;
+  const Shards<T> sh{nullptr, nullptr, nullptr, n, n, 0, 0, 1,
+                     ess_top ? Dz - 1 : -1};
+  return dispatch<T>(x, y, kx, mx, ky, my, kz, mz, Dx, Dy, Dz, p, periodic_x,
+                     Tx, Ty, Tz, S, smem, 1, sh, stream);
+}
+
+// ndev stacked z-slab windows (shard mode; the header comment).
+template <typename T>
+int shard_windows(const void* x, void* y, const void* kx, const void* mx,
+                  const void* ky, const void* my, const void* kz,
+                  const void* mz, int Dx, int Dy, int Dz, int p,
+                  int periodic_x, int Tx, int Ty, int Tz, int S, int smem,
+                  const void* scal, const void* p0, void* yhalo, int ndev,
+                  long long xs, long long ys, long long p0s, void* stream) {
+  const Shards<T> sh{static_cast<const int*>(scal),
+                     static_cast<const T*>(p0), static_cast<T*>(yhalo), xs,
+                     ys, p0s, (long long)(2 * p + 1) * Dz, 1, -1};
+  if (scal == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch<T>(x, y, kx, mx, ky, my, kz, mz, Dx, Dy, Dz, p, periodic_x,
+                     Tx, Ty, Tz, S, smem, ndev, sh, stream);
 }
 
 }  // namespace
@@ -390,8 +483,8 @@ extern "C" int sep_apply_f32(const void* x, void* y, const void* kx,
                              int Dz, int p, int periodic_x, int ess_top,
                              int Tx, int Ty, int Tz, int S, int smem,
                              void* stream) {
-  return dispatch<float>(x, y, kx, mx, ky, my, kz, mz, Dx, Dy, Dz, p,
-                         periodic_x, ess_top, Tx, Ty, Tz, S, smem, stream);
+  return one_lattice<float>(x, y, kx, mx, ky, my, kz, mz, Dx, Dy, Dz, p,
+                            periodic_x, ess_top, Tx, Ty, Tz, S, smem, stream);
 }
 
 extern "C" int sep_apply_f64(const void* x, void* y, const void* kx,
@@ -400,6 +493,31 @@ extern "C" int sep_apply_f64(const void* x, void* y, const void* kx,
                              int Dz, int p, int periodic_x, int ess_top,
                              int Tx, int Ty, int Tz, int S, int smem,
                              void* stream) {
-  return dispatch<double>(x, y, kx, mx, ky, my, kz, mz, Dx, Dy, Dz, p,
-                          periodic_x, ess_top, Tx, Ty, Tz, S, smem, stream);
+  return one_lattice<double>(x, y, kx, mx, ky, my, kz, mz, Dx, Dy, Dz, p,
+                             periodic_x, ess_top, Tx, Ty, Tz, S, smem, stream);
+}
+
+// Shard mode: kz, mz are [ndev][2p+1][Dz] (one band table per window),
+// scal [ndev][2] int on the device, x / y / p0 rows of xs / ys / p0s values,
+// yhalo [ndev][Dx*Dy].
+extern "C" int sep_apply_shard_f32(
+    const void* x, void* y, const void* kx, const void* mx, const void* ky,
+    const void* my, const void* kz, const void* mz, int Dx, int Dy, int Dz,
+    int p, int periodic_x, int Tx, int Ty, int Tz, int S, int smem,
+    const void* scal, const void* p0, void* yhalo, int ndev, long long xs,
+    long long ys, long long p0s, void* stream) {
+  return shard_windows<float>(x, y, kx, mx, ky, my, kz, mz, Dx, Dy, Dz, p,
+                              periodic_x, Tx, Ty, Tz, S, smem, scal, p0,
+                              yhalo, ndev, xs, ys, p0s, stream);
+}
+
+extern "C" int sep_apply_shard_f64(
+    const void* x, void* y, const void* kx, const void* mx, const void* ky,
+    const void* my, const void* kz, const void* mz, int Dx, int Dy, int Dz,
+    int p, int periodic_x, int Tx, int Ty, int Tz, int S, int smem,
+    const void* scal, const void* p0, void* yhalo, int ndev, long long xs,
+    long long ys, long long p0s, void* stream) {
+  return shard_windows<double>(x, y, kx, mx, ky, my, kz, mz, Dx, Dy, Dz, p,
+                               periodic_x, Tx, Ty, Tz, S, smem, scal, p0,
+                               yhalo, ndev, xs, ys, p0s, stream);
 }

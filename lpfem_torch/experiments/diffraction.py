@@ -19,13 +19,19 @@ defaults:
   the deviation from both it and the JAX result ``data/cylinder-diffraction.
   txt`` (interpolated in theta).
 
-Not ported here: ``--gmsh`` (A8), ``--shard`` (A12), the VTU snapshot (A11)
-and ``--chunk`` (a TPU watchdog workaround, A13).
+``--shard n`` runs the time loop through :class:`~lpfem_torch.shard.
+ShardedProblem` over n shards (the reference runs this study under MPI):
+on this tank (one element layer) the partition is compact x-slabs by
+element centroid, and each shard's curved elements go through B3b.
+
+Not ported here: ``--gmsh`` (A8), the VTU snapshot (A11) and ``--chunk``
+(a TPU watchdog workaround).
 
 Usage (from the root of a checkout, on a machine with a CUDA GPU):
   python -m lpfem_torch.experiments.diffraction
   python -m lpfem_torch.experiments.diffraction --dtype mixed
   python -m lpfem_torch.experiments.diffraction --quick --device cpu
+  python -m lpfem_torch.experiments.diffraction --quick --shard 4 --device cpu
 """
 
 from __future__ import annotations
@@ -213,6 +219,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--rtol-sq", type=float, default=None,
                     help="CG tolerance on r.z; default 1e-24 (float64) / "
                          "1e-10 (float32, mixed)")
+    ap.add_argument("--shard", type=int, default=0,
+                    help="run the time loop through the sharded runner over "
+                         "n shards (0: the single-device Problem)")
     ap.add_argument("--out", default="chiprun_out/cylinder-diffraction-torch.txt")
     ap.add_argument("--out-exact",
                     default="chiprun_out/cylinder_boundary-torch.txt")
@@ -243,6 +252,10 @@ def main(argv=None) -> dict:
                          radius=args.radius, H=args.H, precond=args.precond,
                          cheb_degree=args.cheb_degree, lateral=args.lateral,
                          dtype=args.dtype, rtol_sq=args.rtol_sq)
+    runner = prob
+    if args.shard:
+        from ..shard import ShardedProblem
+        runner = ShardedProblem(prob, args.shard)
     setup_s = time.perf_counter() - t_setup
     wave, ns = prob.wave, prob.surf.n_dofs
     print(f"mesh: {prob.space.mesh.n_elems} hexes; dofs vol="
@@ -264,12 +277,12 @@ def main(argv=None) -> dict:
     launches0 = pa_apply.LAUNCHES
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    t, y, phi = prob.run(n_steps=args.nsteps, record=record)
+    t, y, phi = runner.run(n_steps=args.nsteps, record=record)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0_wall
-    prob.check_state(y, phi)
-    stats = prob.last_solver_stats
+    runner.check_state(y, phi)
+    stats = runner.last_solver_stats
     print(f"run: {wall:.1f}s t_final={t:.3f}; {stats.n_solves} solves, "
           f"{stats.total_iters} inner CG iterations (max {stats.max_iters}), "
           f"{stats.syncs} host syncs, {pa_apply.LAUNCHES - launches0} "
@@ -301,7 +314,8 @@ def main(argv=None) -> dict:
     result = dict(
         device=(torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu"), nvidia_smi=card,
-        dtype=args.dtype, dofs=prob.space.n_dofs, surface_dofs=ns,
+        dtype=args.dtype, shards=args.shard, dofs=prob.space.n_dofs,
+        surface_dofs=ns,
         hexes=prob.space.mesh.n_elems, steps=len(ts), t_final=t,
         setup_s=setup_s, wall_s=wall, n_solves=stats.n_solves,
         total_inner_iters=stats.total_iters, max_iters=stats.max_iters,

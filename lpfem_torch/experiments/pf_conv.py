@@ -8,10 +8,12 @@ Counterpart of ``experiments/pf_conv.py`` (the JAX package's driver):
 - h-convergence at fixed order, also measuring ``||w - w_ex||_inf``
   (``convergence-parallel-partial-hconv.cpp:142-351``).
 
-``--shard`` (the n-device runner) waits for the sharding port (ROADMAP A6)
-and raises; lpfem's ``--chunk`` (the TPU watchdog's program split) is not
-needed here: the time loop runs on the host. Tables go to ``chiprun_out/``
-(``--out`` to choose), never ``data/``.
+``--shard n`` runs each case through :class:`~lpfem_torch.shard.
+ShardedProblem` over n shards (the reference's mpirun form,
+``convergence-parallel.cpp:269-276``): the metrics must match the
+single-shard table to round-off. lpfem's ``--chunk`` (the TPU watchdog's
+program split) is not needed here: the time loop runs on the host. Tables
+go to ``chiprun_out/`` (``--out`` to choose), never ``data/``.
 
     python -m lpfem_torch.experiments.pf_conv --mode p --max-order 8
     python -m lpfem_torch.experiments.pf_conv --mode h --order 4 --refs 2
@@ -37,12 +39,24 @@ def run_case(args, order: int, mesh=None) -> dict:
     cfg = preset("pf_linear_periodic", nx=args.nx, nz=args.nz, order=order,
                  nsteps=args.nsteps, cg_max_iter=2000, dtype=args.dtype,
                  precond=args.precond if order > 1 else "jacobi")
-    prob = Problem(cfg, args.device, mesh=mesh)
+    shard = getattr(args, "shard", 0)
+    prob = Problem(cfg, args.device, mesh=mesh, build_precond=not shard)
     t0 = time.perf_counter()
-    t, y, phi = prob.run()
-    block_until_ready(y)
-    wall = time.perf_counter() - t0
-    prob.check_state(y, phi)
+    if shard:
+        import torch
+
+        from ..shard import ShardedProblem
+        sprob = ShardedProblem(prob, shard)
+        t, y, phi_st = sprob.run()
+        block_until_ready(y)
+        wall = time.perf_counter() - t0
+        sprob.check_state(y, phi_st)
+        phi = torch.as_tensor(sprob.phi_global(phi_st)).to(prob.device)
+    else:
+        t, y, phi = prob.run()
+        block_until_ready(y)
+        wall = time.perf_counter() - t0
+        prob.check_state(y, phi)
     return dict(dofs=prob.surf.n_dofs, eta_err=prob.eta_error_inf(y, t),
                 w_err=prob.w_error_inf(phi, t), wall=wall)
 
@@ -64,15 +78,11 @@ def main(argv=None) -> str:
     ap.add_argument("--dtype", default="float64",
                     choices=["float64", "float32", "mixed"])
     ap.add_argument("--shard", type=int, default=0,
-                    help="the n-device sharded runner: not ported "
-                         "(ROADMAP A6)")
+                    help="run each case through the sharded runner over n "
+                         "shards (0: the single-device Problem)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.shard:
-        raise NotImplementedError("--shard: the sharded runner "
-                                  "(lpfem/shard.py) is not ported yet "
-                                  "(ROADMAP A6)")
 
     from ..io import DataFile
 

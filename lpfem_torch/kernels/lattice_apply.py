@@ -25,6 +25,16 @@ essential boundary: read as zero, and the output's top plane is the input's
   elements and local nodes that hold it, and its summation order (ascending
   element index), so the CPU tests check the arithmetic the fold launch
   does.
+- Shard mode (the TPU kernel's ``shard_scal`` / ``p0`` mode, run on the
+  sheared lattices' z-slab windows by ``lpfem_torch.shard``):
+  :func:`lattice_affine_apply_shard` applies ``ndev`` stacked windows in the
+  same two launches, each window with its metric rows (zero on a slab's
+  padding layers) and its row of ``scal = (zt, own0)`` as
+  ``kernels.sep_apply``'s shard mode: ``zt`` the Dirichlet plane or -1,
+  ``own0`` whether plane 0 is the shard's own (else it reads the halo plane
+  ``p0`` and its outputs go to ``yhalo``). It counts its calls in
+  ``LAUNCHES_SHARD`` / ``LAUNCHES_SHARD_BY_P``;
+  :func:`lattice_affine_apply_shard_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -38,12 +48,18 @@ from .pa_apply import check_tables, pa_apply_affine_reference
 
 __all__ = ["lattice_elem_dofs", "lattice_affine_apply",
            "lattice_affine_apply_reference", "fold_table",
-           "lattice_affine_apply_mirror"]
+           "lattice_affine_apply_mirror", "lattice_affine_apply_shard",
+           "lattice_affine_apply_shard_reference"]
 
 LAUNCHES = 0          # calls of the kernel entry through lattice_affine_apply
 LAUNCHES_BY_P: dict[int, int] = {}     # the same calls by element order p
+LAUNCHES_SHARD = 0    # calls of the shard entry through ..._shard
+LAUNCHES_SHARD_BY_P: dict[int, int] = {}
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SHARD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
 
 
 def _dof_dims(p: int, dims, periodic) -> tuple[int, int, int]:
@@ -236,3 +252,103 @@ def lattice_affine_apply(x: torch.Tensor, C6: torch.Tensor, w3: torch.Tensor,
     LAUNCHES += 1
     LAUNCHES_BY_P[p] = LAUNCHES_BY_P.get(p, 0) + 1
     return y
+
+
+def lattice_affine_apply_shard_reference(x: torch.Tensor, C6: torch.Tensor,
+                                         w3: torch.Tensor, B: torch.Tensor,
+                                         D: torch.Tensor, dims, periodic,
+                                         scal, p0: torch.Tensor):
+    """Plain PyTorch shard mode, one window at a time: ``x [ndev, W]``
+    (the window of ``dims = (nex, ney, nez)`` elements in the first lanes
+    of each row), ``C6 [ndev * ne, 6]``, ``scal [ndev, 2]`` rows ``(zt,
+    own0)``, ``p0 [ndev, >= Dx*Dy]``. Returns ``(y [ndev, W], yhalo [ndev,
+    Dx*Dy])``, lanes of ``y`` past the window 0."""
+    from .sep_apply import _shard_rows
+    p = B.shape[1] - 1
+    Dx, Dy, Dz = _dof_dims(p, dims, periodic)
+    plane, n = Dx * Dy, Dx * Dy * Dz
+    ed = lattice_elem_dofs(p, dims, periodic, x.device)
+    C6 = C6.reshape(x.shape[0], ed.shape[0], 6)
+    y = torch.zeros_like(x)
+    yhalo = x.new_zeros(x.shape[0], plane)
+    for d, (zt, own0) in enumerate(_shard_rows(scal)):
+        u = x[d, :n].clone()
+        if not own0:
+            u[:plane] = p0[d, :plane]
+        if zt >= 0:
+            u[zt * plane:(zt + 1) * plane] = 0.0
+        ye = pa_apply_affine_reference(u[ed], C6[d], w3, B, D)
+        yd = torch.zeros_like(u).index_add_(0, ed.reshape(-1), ye.reshape(-1))
+        if zt >= 0:
+            yd[zt * plane:(zt + 1) * plane] = x[d, zt * plane:(zt + 1) * plane]
+        if not own0:
+            yhalo[d] = yd[:plane]
+            yd[:plane] = 0.0
+        y[d, :n] = yd
+    return y, yhalo
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_entry(dtype: torch.dtype):
+    """The library's shard-mode C entry for ``dtype``."""
+    from ._build import load_library
+    lib = load_library("lattice_apply")
+    fn = (lib.lattice_affine_apply_shard_f32 if dtype == torch.float32
+          else lib.lattice_affine_apply_shard_f64)
+    fn.argtypes = _SHARD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def lattice_affine_apply_shard(x: torch.Tensor, C6: torch.Tensor,
+                               w3: torch.Tensor, B: torch.Tensor,
+                               D: torch.Tensor, dims, periodic,
+                               scal: torch.Tensor, p0: torch.Tensor):
+    """Shard mode (the module docstring) on ``ndev`` stacked windows, the
+    arguments of :func:`lattice_affine_apply_shard_reference` (``scal``
+    as ``kernels.sep_apply.check_scal`` passes it): the two launches for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    global LAUNCHES_SHARD
+    if x.device.type == "cpu":
+        return lattice_affine_apply_shard_reference(x, C6, w3, B, D, dims,
+                                                    periodic, scal, p0)
+    if x.device.type != "cuda":
+        raise ValueError(f"lattice_affine_apply_shard: unsupported device "
+                         f"{x.device}")
+    ndev = x.shape[0]
+    ne = dims[0] * dims[1] * dims[2]
+    p1 = B.shape[1]
+    Dx, Dy, Dz = _dof_dims(p1 - 1, dims, periodic)
+    if x.dim() != 2 or not x.is_contiguous() or x.shape[1] < Dx * Dy * Dz:
+        raise ValueError("x must be a contiguous [ndev, >= n] tensor")
+    p, q = _check(x.new_empty(Dx * Dy * Dz), C6.reshape(ndev, ne, 6)[0],
+                  w3, B, D, dims, periodic)
+    if not C6.is_contiguous() or C6.numel() != ndev * ne * 6:
+        raise ValueError(f"C6 must be contiguous [ndev * {ne}, 6]")
+    if (p0.dim() != 2 or p0.shape[0] != ndev or p0.shape[1] < Dx * Dy
+            or p0.stride(1) != 1 or p0.dtype != x.dtype
+            or p0.device != x.device):
+        raise ValueError("p0 must be [ndev, >= Dx*Dy] rows in x's dtype")
+    if (scal.shape != (ndev, 2) or scal.dtype != torch.int32
+            or not scal.is_contiguous() or scal.device != x.device):
+        raise ValueError("scal must be a contiguous int32 [ndev, 2] tensor "
+                         "on x's device")
+    if ndev * ne * p1 ** 3 >= 2 ** 31:
+        raise ValueError("windows too large for the kernel's int sizes")
+    fn = _shard_entry(x.dtype)
+    with torch.cuda.device(x.device):
+        ye = torch.empty(ndev * ne, p1 ** 3, dtype=x.dtype, device=x.device)
+        y = torch.empty_like(x)
+        yhalo = torch.empty(ndev, Dx * Dy, dtype=x.dtype, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), p0.data_ptr(), C6.data_ptr(), w3.data_ptr(),
+                B.data_ptr(), D.data_ptr(), ye.data_ptr(), y.data_ptr(),
+                yhalo.data_ptr(), *(int(n) for n in dims), p, q,
+                int(bool(periodic[0])), scal.data_ptr(), ndev, x.shape[1],
+                y.shape[1], p0.stride(0), stream)
+    if rc != 0:
+        raise RuntimeError(f"lattice_affine_apply_shard kernel launch "
+                           f"failed: CUDA error {rc}")
+    LAUNCHES_SHARD += 1
+    LAUNCHES_SHARD_BY_P[p] = LAUNCHES_SHARD_BY_P.get(p, 0) + 1
+    return y, yhalo

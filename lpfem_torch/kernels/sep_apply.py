@@ -19,6 +19,16 @@ identity rows and columns on the top z-plane.
   decomposition in plain PyTorch, so the CPU tests check what each block
   reads and sums: x tiles with a wrapped or zero halo, y tiles, z-chunks
   whose halo planes are recomputed, and the ring of the last 2p+1 planes.
+- Shard mode (the TPU kernel's ``shard_scal`` / ``p0`` mode, run on every
+  z-slab window level of ``lpfem_torch.shard``): :func:`sep_apply_shard`
+  applies ``ndev`` stacked windows in one launch, each with its own z bands
+  and its row of ``scal = (zt, own0)``: ``zt`` the Dirichlet plane (read as
+  zero, output the input) or -1, ``own0`` whether the shard owns its
+  window's plane 0 (else plane 0 reads the exchanged halo plane ``p0`` and
+  its outputs go to ``yhalo``, ``y``'s plane 0 being 0). It counts its
+  launches in ``LAUNCHES_SHARD`` / ``LAUNCHES_SHARD_BY_P``;
+  :func:`sep_apply_shard_reference` is its plain version, shard by shard,
+  and :func:`sep_apply_mirror` takes the same mode for one window.
 """
 
 from __future__ import annotations
@@ -30,10 +40,13 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["sep_apply", "sep_apply_reference", "sep_apply_mirror",
-           "choose_tiles", "tile_blocks", "tile_smem_bytes"]
+           "sep_apply_shard", "sep_apply_shard_reference", "choose_tiles",
+           "tile_blocks", "tile_smem_bytes"]
 
 LAUNCHES = 0          # kernel launches through sep_apply (never the plain path)
 LAUNCHES_BY_P: dict[int, int] = {}     # the same launches by order p
+LAUNCHES_SHARD = 0    # kernel launches through sep_apply_shard
+LAUNCHES_SHARD_BY_P: dict[int, int] = {}
 
 # The kernel's limits (csrc/sep_apply.cu: kMaxP, max_threads<T>()); its
 # entry refuses tiles past them, and shared-memory bytes other than those of
@@ -45,6 +58,9 @@ TARGET_BLOCKS = 264   # two blocks per SM of an H100 (132 SMs)
 SMEM_LIMIT = 232_448  # shared memory a block may use on Hopper (227 KB)
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_SHARD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
 
 
 def _shifts(u: torch.Tensor, axis: int, p: int, periodic: bool):
@@ -70,32 +86,76 @@ def sep_apply_reference(x: torch.Tensor, bands, periodic,
     """Plain PyTorch ``A x`` on the lattice view ``x [Dz, Dy, Dx]``;
     ``periodic = (px, py, pz)``. Each axis pass shifts its input once and
     feeds both of its bands, as the kernel does."""
-    Kx, Mx, Ky, My, Kz, Mz = bands
-    px, py, pz = periodic
-    p = (Kx.shape[0] - 1) // 2
     u = x
     if ess_top:
         u = x.clone()
         u[-1] = 0.0
-    us = _shifts(u, 2, p, px)
-    t1, t2 = _contract(Kx, us, 2), _contract(Mx, us, 2)
-    t1s, t2s = _shifts(t1, 1, p, py), _shifts(t2, 1, p, py)
-    a = _contract(My, t1s, 1) + _contract(Ky, t2s, 1)
-    b = _contract(My, t2s, 1)
-    y = (_contract(Mz, _shifts(a, 0, p, pz), 0)
-         + _contract(Kz, _shifts(b, 0, p, pz), 0))
+    y = _apply(u, bands, periodic)
     if ess_top:
         y[-1] = x[-1]
     return y
 
 
+def _apply(u: torch.Tensor, bands, periodic) -> torch.Tensor:
+    """The seven contractions of :func:`sep_apply_reference`."""
+    Kx, Mx, Ky, My, Kz, Mz = bands
+    px, py, pz = periodic
+    p = (Kx.shape[0] - 1) // 2
+    us = _shifts(u, 2, p, px)
+    t1, t2 = _contract(Kx, us, 2), _contract(Mx, us, 2)
+    t1s, t2s = _shifts(t1, 1, p, py), _shifts(t2, 1, p, py)
+    a = _contract(My, t1s, 1) + _contract(Ky, t2s, 1)
+    b = _contract(My, t2s, 1)
+    return (_contract(Mz, _shifts(a, 0, p, pz), 0)
+            + _contract(Kz, _shifts(b, 0, p, pz), 0))
+
+
+def _shard_rows(scal) -> list[tuple[int, int]]:
+    """``scal [ndev, 2]`` (a tensor or nested lists) as host pairs."""
+    rows = scal.tolist() if isinstance(scal, torch.Tensor) else list(scal)
+    return [(int(zt), int(o)) for zt, o in rows]
+
+
+def sep_apply_shard_reference(x: torch.Tensor, bands_xy, zbands,
+                              periodic_x: bool, scal, p0: torch.Tensor,
+                              dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch shard mode, one window at a time: ``x [ndev, W]``
+    (window ``dims = (Dx, Dy, Dz)`` in the first ``Dx*Dy*Dz`` lanes of each
+    row), ``bands_xy = (Kx, Mx, Ky, My)``, ``zbands = (Kz, Mz)`` each
+    ``[ndev, 2p+1, Dz]``, ``scal [ndev, 2]`` rows ``(zt, own0)``, ``p0
+    [ndev, >= Dx*Dy]``. Returns ``(y [ndev, W], yhalo [ndev, Dx*Dy])``,
+    lanes of ``y`` past the window 0."""
+    Dx, Dy, Dz = dims
+    plane, n = Dx * Dy, Dx * Dy * Dz
+    Kz, Mz = zbands
+    y = torch.zeros_like(x)
+    yhalo = x.new_zeros(x.shape[0], plane)
+    for d, (zt, own0) in enumerate(_shard_rows(scal)):
+        u = x[d, :n].reshape(Dz, Dy, Dx).clone()
+        if not own0:
+            u[0] = p0[d, :plane].reshape(Dy, Dx)
+        if zt >= 0:
+            u[zt] = 0.0
+        yd = _apply(u, (*bands_xy, Kz[d], Mz[d]), (periodic_x, False, False))
+        if zt >= 0:
+            yd[zt] = x[d, zt * plane:(zt + 1) * plane].reshape(Dy, Dx)
+        yd = yd.reshape(-1)
+        if not own0:
+            yhalo[d] = yd[:plane]
+            yd[:plane] = 0.0
+        y[d, :n] = yd
+    return y, yhalo
+
+
 @functools.lru_cache(maxsize=64)
-def choose_tiles(dims, p: int, itemsize: int) -> tuple[int, int, int, int]:
+def choose_tiles(dims, p: int, itemsize: int,
+                 nbatch: int = 1) -> tuple[int, int, int, int]:
     """``(Tx, Ty, Tz, S)`` of the kernel for the lattice ``dims = (Dx, Dy,
     Dz)``: Tx = 8 columns in float, 4 in double; Ty the whole y axis while
     ``Tx * Dy <= MAX_THREADS[itemsize]`` (the y halo then lies past the
     ends), else
-    the axis split evenly; the z-chunk Tz such that the grid has at least
+    the axis split evenly; the z-chunk Tz such that the grid (over
+    ``nbatch`` stacked lattices in shard mode) has at least
     ``TARGET_BLOCKS`` blocks, chunks as even as Dz allows; S the u tile's
     row stride, at least Tx + 2p and congruent to Tx modulo the row width
     of a bank line, so the rows a warp reads fall in distinct banks."""
@@ -103,7 +163,7 @@ def choose_tiles(dims, p: int, itemsize: int) -> tuple[int, int, int, int]:
     tx = min(8 if itemsize == 4 else 4, Dx)
     rows = MAX_THREADS[itemsize] // tx
     ty = -(-Dy // -(-Dy // rows))
-    nxy = -(-Dx // tx) * -(-Dy // ty)
+    nxy = -(-Dx // tx) * -(-Dy // ty) * nbatch
     chunks = min(Dz, max(1, -(-TARGET_BLOCKS // nxy)))
     tz = -(-Dz // chunks)
     line = 32 * 4 // itemsize           # values per 32 banks
@@ -134,7 +194,7 @@ def tile_blocks(dims, tiles):
 
 
 def sep_apply_mirror(x: torch.Tensor, bands, periodic, ess_top: bool = False,
-                     tiles=None) -> torch.Tensor:
+                     tiles=None, shard=None):
     """Plain PyTorch ``A x`` in the kernel's decomposition (``tiles`` from
     :func:`choose_tiles` unless given): per block, each input plane of its
     z-chunk and the chunk's p halo planes on either side (within the
@@ -143,7 +203,12 @@ def sep_apply_mirror(x: torch.Tensor, bands, periodic, ess_top: bool = False,
     top plane zero under ``ess_top``), contracted in x on every tile row and
     in y on the output rows; the last 2p+1 planes' (a, b) form a ring, zero
     past the top, from which each output plane is emitted. Sums run
-    s = -p..p in order."""
+    s = -p..p in order.
+
+    ``shard = (zt, own0, p0 [Dy, Dx])``: one window of the shard mode (its
+    own z bands in ``bands``), with the Dirichlet plane ``zt`` (-1: none)
+    in place of ``ess_top``'s top plane and, when ``own0`` is false, plane 0
+    read from ``p0``; returns ``(y, yhalo [Dy*Dx])`` then."""
     Kx, Mx, Ky, My, Kz, Mz = bands
     if periodic[1] or periodic[2]:
         raise ValueError("only the x axis may be periodic")
@@ -153,6 +218,8 @@ def sep_apply_mirror(x: torch.Tensor, bands, periodic, ess_top: bool = False,
     if tiles is None:
         tiles = choose_tiles((Dx, Dy, Dz), p, x.element_size())
     tx, ty, tz, _ = tiles
+    zt, own0, p0 = (shard if shard is not None
+                    else (Dz - 1 if ess_top else -1, True, None))
     y = torch.empty_like(x)
     zero = x.new_zeros(())
     for x0, x1, y0, y1, z0, z1 in tile_blocks((Dx, Dy, Dz), tiles):
@@ -171,8 +238,9 @@ def sep_apply_mirror(x: torch.Tensor, bands, periodic, ess_top: bool = False,
         ring_b = [x.new_zeros(ty, tx) for _ in range(R)]
         for z in range(max(0, z0 - p), z1 + p):
             if z < Dz:
-                u = torch.where(inside, x[z][gyc][:, gxc], zero)
-                if ess_top and z == Dz - 1:
+                src = p0 if z == 0 and not own0 else x[z]
+                u = torch.where(inside, src[gyc][:, gxc], zero)
+                if z == zt:
                     u = torch.zeros_like(u)
                 t1 = sum(Kx[k, cx] * u[:, k:k + tx] for k in range(R))
                 t2 = sum(Mx[k, cx] * u[:, k:k + tx] for k in range(R))
@@ -189,10 +257,16 @@ def sep_apply_mirror(x: torch.Tensor, bands, periodic, ess_top: bool = False,
                 continue
             out = (sum(Mz[k, zo] * ring_a[k] for k in range(R))
                    + sum(Kz[k, zo] * ring_b[k] for k in range(R)))
-            if ess_top and zo == Dz - 1:
+            if zo == zt:
                 out = x[zo, y0:y0 + ty, x0:x0 + tx]
             y[zo, y0:y1, x0:x1] = out[:y1 - y0, :x1 - x0]
-    return y
+    if shard is None:
+        return y
+    yhalo = x.new_zeros(Dy * Dx)
+    if not own0:
+        yhalo = y[0].reshape(-1).clone()
+        y[0] = 0.0
+    return y, yhalo
 
 
 def _check(x: torch.Tensor, bands, periodic) -> int:
@@ -259,3 +333,93 @@ def sep_apply(x: torch.Tensor, bands, periodic,
     LAUNCHES += 1
     LAUNCHES_BY_P[p] = LAUNCHES_BY_P.get(p, 0) + 1
     return y
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_entry(dtype: torch.dtype):
+    """The library's shard-mode C entry for ``dtype``."""
+    from ._build import load_library
+    lib = load_library("sep_apply")
+    fn = (lib.sep_apply_shard_f32 if dtype == torch.float32
+          else lib.sep_apply_shard_f64)
+    fn.argtypes = _SHARD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_shard(x, bands_xy, zbands, periodic_x, scal, p0, dims) -> int:
+    """Validate what the shard entry takes; returns p."""
+    Dx, Dy, Dz = dims
+    if x.dim() != 2 or not x.is_contiguous() or x.shape[1] < Dx * Dy * Dz:
+        raise ValueError("x must be a contiguous [ndev, >= Dx*Dy*Dz] tensor")
+    ndev = x.shape[0]
+    p = (bands_xy[0].shape[0] - 1) // 2
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"p = {p}: the kernel takes 1 <= p <= {MAX_P}")
+    if periodic_x and Dx <= 2 * p:
+        raise ValueError("periodic x needs Dx > 2p (band offsets alias)")
+    shapes = [(b, (2 * p + 1, D)) for b, D in zip(bands_xy, (Dx, Dx, Dy, Dy))]
+    shapes += [(z, (ndev, 2 * p + 1, Dz)) for z in zbands]
+    for b, shape in shapes:
+        if tuple(b.shape) != shape or not b.is_contiguous():
+            raise ValueError(f"band of shape {tuple(b.shape)}, expected a "
+                             f"contiguous {shape}")
+        if b.dtype != x.dtype or b.device != x.device:
+            raise ValueError("bands must match x in dtype and device")
+    if (p0.dim() != 2 or p0.shape[0] != ndev or p0.shape[1] < Dx * Dy
+            or p0.stride(1) != 1 or p0.dtype != x.dtype
+            or p0.device != x.device):
+        raise ValueError("p0 must be [ndev, >= Dx*Dy] rows in x's dtype")
+    if (scal.shape != (ndev, 2) or scal.dtype != torch.int32
+            or not scal.is_contiguous() or scal.device != x.device):
+        raise ValueError("scal must be a contiguous int32 [ndev, 2] tensor "
+                         "on x's device")
+    if x.numel() >= 2 ** 31:
+        raise ValueError("windows too large for the kernel's int sizes")
+    return p
+
+
+def check_scal(scal, Dz: int) -> None:
+    """Raise unless every row ``(zt, own0)`` has ``zt`` -1 or in [1, Dz)
+    and ``own0`` 0 or 1 (host values; the kernel reads them unchecked)."""
+    for zt, own0 in _shard_rows(scal):
+        if not (zt == -1 or 1 <= zt < Dz) or own0 not in (0, 1):
+            raise ValueError(f"shard row ({zt}, {own0}) outside zt in "
+                             f"{{-1}} U [1, {Dz}), own0 in {{0, 1}}")
+
+
+def sep_apply_shard(x: torch.Tensor, bands_xy, zbands, periodic_x: bool,
+                    scal: torch.Tensor, p0: torch.Tensor,
+                    dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shard mode (the module docstring) on ``ndev`` stacked windows, the
+    arguments of :func:`sep_apply_shard_reference` (``scal`` checked by
+    :func:`check_scal` when the caller built it): one kernel launch for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    global LAUNCHES_SHARD
+    if x.device.type == "cpu":
+        return sep_apply_shard_reference(x, bands_xy, zbands, periodic_x,
+                                         scal, p0, dims)
+    if x.device.type != "cuda":
+        raise ValueError(f"sep_apply_shard: unsupported device {x.device}")
+    p = _check_shard(x, bands_xy, zbands, periodic_x, scal, p0, dims)
+    fn = _shard_entry(x.dtype)
+    Dx, Dy, Dz = dims
+    ndev = x.shape[0]
+    tiles = choose_tiles((Dx, Dy, Dz), p, x.element_size(), ndev)
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        yhalo = torch.empty(ndev, Dx * Dy, dtype=x.dtype, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), y.data_ptr(),
+                *(b.data_ptr() for b in bands_xy),
+                *(z.data_ptr() for z in zbands), Dx, Dy, Dz, p,
+                int(bool(periodic_x)), *tiles,
+                tile_smem_bytes(p, tiles, x.element_size()), scal.data_ptr(),
+                p0.data_ptr(), yhalo.data_ptr(), ndev, x.shape[1],
+                y.shape[1], p0.stride(0), stream)
+    if rc != 0:
+        raise RuntimeError(f"sep_apply_shard kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES_SHARD += 1
+    LAUNCHES_SHARD_BY_P[p] = LAUNCHES_SHARD_BY_P.get(p, 0) + 1
+    return y, yhalo

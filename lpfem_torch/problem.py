@@ -107,11 +107,14 @@ class Problem:
     """A fully assembled LPF wave problem on one device."""
 
     def __init__(self, cfg: Config, device="cuda", lmax=None,
-                 mesh: Mesh | None = None):
+                 mesh: Mesh | None = None, build_precond: bool = True):
         """``device``: where every tensor lives (no global default; a missing
         GPU raises). ``lmax``: per-level smoother lambda_max for the
         p-multigrid (parity runs inject the reference's). ``mesh``: a mesh
-        to run on instead of the configured one."""
+        to run on instead of the configured one. ``build_precond=False``
+        skips the configured preconditioner (its solves run Jacobi): the
+        host-side set-up of ``ShardedProblem.from_config``, which builds its
+        own."""
         _check_supported(cfg, mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -149,7 +152,9 @@ class Problem:
                 n_ramp=cfg.n_ramp, dtype=self.dtype, device=self.device)
 
         precond_fn = None
-        if cfg.precond == "pmg":
+        if not build_precond:
+            pass
+        elif cfg.precond == "pmg":
             precond_fn = PMultigrid(self.op, smooth_degree=cfg.cheb_degree,
                                     h_coarsen_min_dofs=cfg.h_coarsen_min_dofs,
                                     lmax=lmax)

@@ -40,9 +40,12 @@ def pcg(apply_fn: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
         precond_fn: Callable = lambda r: r,
         rtol_sq: float = 1e-24, atol_sq: float = 0.0,
         max_iter: int = 1000,
-        grow_limit: float | None = 1e6) -> CGResult:
+        grow_limit: float | None = 1e6,
+        dot_fn: Callable = _dot) -> CGResult:
     """Preconditioned conjugate gradients (Hestenes-Stiefel, MFEM update
     order). ``x0=None`` starts from zero without an apply (r = b).
+    ``dot_fn``: the inner product (the sharded solver passes its sum of
+    per-shard dots, lpfem's ``dot_fn``).
 
     ``grow_limit``: exit once r.z exceeds ``grow_limit`` times its running
     minimum — a stalled finite-precision recurrence that breaks down grows
@@ -57,7 +60,7 @@ def pcg(apply_fn: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
         r = b - apply_fn(x0)
     z = precond_fn(r)
     d = z
-    rz = _dot(r, z)
+    rz = dot_fn(r, z)
     rz0 = rz
     threshold = torch.clamp_min(rz0 * rtol_sq, atol_sq)
     rz_min = rz
@@ -71,14 +74,14 @@ def pcg(apply_fn: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
         if not bool(go):
             break
         Ad = apply_fn(d)
-        dAd = _dot(d, Ad)
+        dAd = dot_fn(d, Ad)
         # zero-denominator guards: hold the iterate instead of making NaNs
         pos = dAd > 0
         alpha = torch.where(pos, rz / torch.where(pos, dAd, 1.0), 0.0)
         x = x + alpha * d
         r = r - alpha * Ad
         z = precond_fn(r)
-        rz_new = _dot(r, z)
+        rz_new = dot_fn(r, z)
         pos = rz > 0
         beta = torch.where(pos, rz_new / torch.where(pos, rz, 1.0), 0.0)
         d = z + beta * d
@@ -93,17 +96,19 @@ def pcg_ir(apply_hi: Callable, apply_lo: Callable, b: torch.Tensor,
            rtol_sq: float = 1e-24, atol_sq: float = 0.0,
            max_outer: int = 4, inner_rtol_sq: float = 1e-8,
            inner_max_iter: int = 1000,
-           lo_dtype: torch.dtype = torch.float32) -> CGResult:
+           lo_dtype: torch.dtype = torch.float32,
+           dot_fn: Callable = _dot) -> CGResult:
     """Mixed-precision CG by iterative refinement: an outer loop on the
     high-precision true residual ``||b - A x||^2`` around an inner
     ``lo_dtype`` :func:`pcg` solve of the error equation. ``b``/``x0`` set
     the high precision. ``iters`` counts the inner iterations, ``rz``/``rz0``
     are the outer ``||r||^2``. ``inner_rtol_sq`` must stay well above the f32
-    CG floor (~1e-10 on r.z): the outer passes supply the depth.
+    CG floor (~1e-10 on r.z): the outer passes supply the depth. ``dot_fn``
+    as :func:`pcg`'s, for both loops.
     """
     x = x0.to(b.dtype)
     r = b - apply_hi(x)
-    rr0 = _dot(r, r)
+    rr0 = dot_fn(r, r)
     threshold = torch.clamp_min(rr0 * rtol_sq, atol_sq)
     rr = rr0
     it = 0
@@ -113,10 +118,11 @@ def pcg_ir(apply_hi: Callable, apply_lo: Callable, b: torch.Tensor,
         if not bool(rr > threshold):
             break
         inner = pcg(apply_lo, r.to(lo_dtype), None, precond_fn=precond_lo,
-                    rtol_sq=inner_rtol_sq, max_iter=inner_max_iter)
+                    rtol_sq=inner_rtol_sq, max_iter=inner_max_iter,
+                    dot_fn=dot_fn)
         x = x + inner.x.to(b.dtype)
         r = b - apply_hi(x)
-        rr = _dot(r, r)
+        rr = dot_fn(r, r)
         it += inner.iters
         syncs += inner.syncs
     return CGResult(x=x, iters=it, rz=rr, rz0=rr0, syncs=syncs)

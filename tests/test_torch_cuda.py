@@ -16,7 +16,10 @@ against its plain version, 1e-13 (2-norm) against the float64 kernel.
 GPU vs CPU trajectory: 1e-12 absolute (values are O(1e-3)), the bound the
 port holds against the JAX reference; the float32 inner solves may sum dots
 in another order, which moves their exits by at most one iteration per
-inner pass.
+inner pass. The shard modes of B1 and B2 (``-k shard``): against their
+plain versions over 3 and 4 stacked windows at the tolerances above, twice
+for the same bits; one sharded RK4 step against the single-device step on
+the GPU, 1e-8 absolute (lpfem's dryrun bound).
 """
 
 import numpy as np
@@ -677,3 +680,87 @@ def test_gpu_ds_run_matches_cpu_run(cuda):
         < 1e-12
     assert not gpu.last_solver_stats.unconverged
     assert gpu.last_solver_stats.n_solves == 12
+
+
+# ---------------------------------------------------------- the shard modes
+def _shard_level(kind, ndev, p, dtype, device):
+    """A sharded level (B1's or B2's shard mode) of a small tank on
+    ``device`` and its CPU twin."""
+    from lpfem_torch.shard import Partition, ShardComm, ShardedLevel
+    if kind == "sep":
+        sp = LatticeSpace((grid_lines(4, 1.0), grid_lines(2, 0.1),
+                           grid_lines(8, 1 / (2 * np.pi))), p,
+                          (True, False, False))
+        make = lambda dev: SeparableLattice(sp, dtype, dev)  # noqa: E731
+    else:
+        sp = CurvedLatticeSpace(leaning_tank(4, 2, 8, 1.0, 0.1,
+                                             1 / (2 * np.pi), lean="z"), p)
+        make = lambda dev: AffineLatticeLaplace(sp, dtype, dev)  # noqa: E731
+    pt = Partition(sp, ndev)
+    ess = sp.top_plane_dofs()
+    return [ShardedLevel(make(dev), pt, ess, ShardComm(ndev), dev)
+            for dev in (device, "cpu")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("ndev", [3, 4])
+@pytest.mark.parametrize("kind", ["sep", "affine"])
+def test_shard_kernels_match_plain_versions(cuda, kind, ndev, p, dtype, tol):
+    """B1's and B2's shard modes on stacked windows (3 shards: a padded
+    top slab) against their plain versions, for the constrained and the
+    unconstrained rows and with own0 flipped; twice on one input for the
+    same bits."""
+    if kind == "affine" and p == 4:
+        p = 3
+    lv, lv_cpu = _shard_level(kind, ndev, p, dtype, cuda)
+    assert lv.mode == kind
+    rng = np.random.default_rng(10 * p + ndev)
+    x = torch.tensor(rng.standard_normal((ndev, lv.N_max + 1))).to(dtype)
+    x[:, lv.N_max] = 0.0
+    p0 = torch.tensor(rng.standard_normal((ndev, lv.pt.win["plane"]))).to(
+        dtype)
+    w = lv.pt.win
+    flip = lv.scal_c.clone()
+    flip[:, 1] = 1 - flip[:, 1]
+    for scal in (lv.scal_c, lv.scal_o, flip):
+        if kind == "sep":
+            def run(l, s, xx, pp):
+                return ksep.sep_apply_shard(xx, l.bands_xy, l.zbands,
+                                            w["periodic"][0], s, pp, l.dims)
+        else:
+            def run(l, s, xx, pp):
+                return klat.lattice_affine_apply_shard(
+                    xx, l.C6, l.w3, l.B, l.D, w["dims"],
+                    (w["periodic"][0], False, False), s, pp)
+        y, yh = run(lv, scal, x.to(cuda), p0.to(cuda))
+        y2, yh2 = run(lv, scal, x.to(cuda), p0.to(cuda))
+        assert torch.equal(y, y2) and torch.equal(yh, yh2)
+        y_r, yh_r = run(lv_cpu, scal.cpu(), x, p0)
+        scale = float(y_r.abs().max())
+        assert float((y.cpu() - y_r).abs().max()) <= tol * scale
+        assert float((yh.cpu() - yh_r).abs().max()) <= tol * scale
+        assert not torch.any(y[:, lv.N_max])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndev", [3, 4])
+def test_sharded_step_on_gpu_matches_single_device(cuda, ndev):
+    """One sharded RK4 step (window layout, p-multigrid with h-levels,
+    mixed) on the GPU against the single-device step on the GPU, 1e-8 on
+    max|y| (the bound of lpfem's dryrun); B1's shard mode launched."""
+    from lpfem_torch.shard import ShardedProblem
+    cfg = lpfem_torch.preset("scaling_base", nx=8, ny=2, nz=8, order=4,
+                             nsteps=4, cg_rtol_sq=1e-24, cg_max_iter=400,
+                             precond="pmg", h_coarsen_min_dofs=0,
+                             dtype="mixed")
+    prob = lpfem_torch.Problem(cfg, cuda)
+    sp = ShardedProblem(prob, ndev)
+    n0 = ksep.LAUNCHES_SHARD
+    _, y, phi = sp.run(n_steps=1)
+    sp.check_state(y, phi)
+    assert ksep.LAUNCHES_SHARD > n0
+    _, y1, _ = prob.run(n_steps=1)
+    assert float((y - y1).abs().max()) < 1e-8

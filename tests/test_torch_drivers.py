@@ -10,7 +10,7 @@
 - ``experiments.laplace_conv``: the p-table it writes agrees with the
   committed ``data/laplace-pconv-phi.txt`` (lpfem's float64 run) at p = 1, 2.
 - ``experiments.pf_conv`` at p = 2 for 4 steps: the table of lpfem's driver
-  within 1e-10.
+  within 1e-10, and so is the table of its ``--shard 2`` run.
 - ``experiments.pf_run``: a run resumed from a checkpoint ends bit for bit
   where the uninterrupted run does; ParaView output is written.
 - ``entry``: one step of ``fn``: the state y within 1e-12 of max|y| of
@@ -28,7 +28,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 import bench as lp_bench
@@ -125,9 +124,13 @@ def test_pf_conv_matches_lpfem(monkeypatch, tmp_path):
     ref, got = np.loadtxt(lp_out, ndmin=2), np.loadtxt(out, ndmin=2)
     np.testing.assert_array_equal(got[:, :2], ref[:, :2])    # order, dofs
     assert np.max(np.abs(got[:, 2:4] - ref[:, 2:4])) <= 1e-10
-    with pytest.raises(NotImplementedError, match="A6"):
-        pf_conv.main(common + ["--shard", "2", "--out", out,
-                               "--device", "cpu"])
+    # the sharded runner (the reference's mpirun form) gives the same table
+    sh_out = str(tmp_path / "pt-shard2.txt")
+    pf_conv.main(common + ["--shard", "2", "--out", sh_out,
+                           "--device", "cpu"])
+    got2 = np.loadtxt(sh_out, ndmin=2)
+    np.testing.assert_array_equal(got2[:, :2], ref[:, :2])
+    assert np.max(np.abs(got2[:, 2:4] - ref[:, 2:4])) <= 1e-10
 
 
 def test_pf_run_resume_is_bit_for_bit(tmp_path, monkeypatch):
@@ -194,7 +197,8 @@ def test_every_module_imports_without_jax_or_lpfem():
             "'lpfem_torch.experiments.laplace_conv', "
             "'lpfem_torch.experiments.pf_conv', "
             "'lpfem_torch.experiments.pf_run', "
-            "'lpfem_torch.experiments.apply_bench'}\n"
+            "'lpfem_torch.experiments.apply_bench', 'lpfem_torch.shard', "
+            "'lpfem_torch.experiments.scaling'}\n"
             "missing = need - set(sys.modules)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'lpfem')]\n"
