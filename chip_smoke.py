@@ -7,8 +7,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. Device and build: require CUDA, print the card's name and power limit
    (nvidia-smi), build the CUDA kernels from ``lpfem_torch/csrc`` (one nvcc
    per source, all started together: B1 and its shard mode, B2 and its
-   shard mode, B3a / B3b, B4) and print the
-   build time and ptxas's report (registers, spills) per kernel.
+   shard mode, B3a / B3b, B4) and the native host library (g++), and print
+   the build time and ptxas's report (registers, spills) per kernel.
 2. Kernels vs plain versions on the card, relative to max|y|: double
    <= 1e-13, float <= 1e-5.
    - ``sep_apply`` (B1, one fused launch per apply; float and double) against
@@ -174,13 +174,52 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      diffraction study with ``--shard 4`` for 2 steps against the same
      run unsharded (rim envelope within 1e-8), B3b launched.
 
+10. The modules of slice 10, each part with the launch counts set to 0
+    just before and read just after its run:
+   - 10a: the element kernels at p = 8, 9, 10 (the column body's second
+     general instantiation): B3b on the diffraction tank's 4,224 curved
+     hexes, B3a and B2 (ess_top) on phase 5A's leaning tank cut to one
+     refinement (4,096 hexes, 4.2M dofs at p = 10; phase 5A runs 32,768),
+     float and double, against their plain versions (``TOL``) and twice for
+     the same bits, with the device ms per launch, the bound and the plain
+     version's ms; then one float64 RK4 step at each order on each: B3b on
+     the small cylinder tank, B2 on a 6 x 2 x 2 leaning tank with its
+     lattice, B3a on the same tank without it (each kernel launched at p).
+   - 10b: the study tank's linear corners as a Gmsh v2.2 file (4,224 hexes,
+     attributes 1, 2, 3) in ``chiprun_out/``, the native and the Python
+     parsers integer-equal, ``set_curvature(4)`` with the rim snapped
+     (within 1e-12 of the circle), and ``diffraction --gmsh`` for 2 steps
+     at 340,725 dofs in float64 (B3b by order, set-up, wall per step,
+     0 < max|eta| < H, the envelope VTU written in the binary format).
+   - 10c: ``pf_linear_par`` (36 x 1 x 1, order 4, 180 steps over 5 T,
+     float64) with ``apply_mode="assembled"`` against ``"pallas"``: final
+     eta within 1e-9 of max|eta|; the ss.cpp tank at refs 2 in float64:
+     the assembly (nonzeros, seconds, peak and held device memory), the
+     SpMV's ms beside B1's float64 (phase 2), and 2 RK4 steps assembled
+     against the PA run (state within 1e-9 of max|y|, the same CG
+     iterations).
+   - 10d: ``pf_linear_par`` assembled over 4 shards: the ELL level's apply
+     within 1e-12 relative of the assembled operator's, one step within
+     1e-10 of max|y| of one card's.
+   - 10e: path B's set-up seconds (phase 5B, native numbering), the binary
+     VTU of the refs 2 and refs 1 volume and the ASCII one of refs 1 (bytes
+     and seconds; ASCII at refs 2, ~8x refs 1's, is left out for time).
+   - 10f: ``pf_run --glvis-every`` to a listener thread on localhost: the
+     bytes received equal ``glvis.solution_text`` of the final state.
+   - 10g: ``apply_bench --cylinder`` (three numberings, B3b launched) and
+     ``diffraction --apply-mode sumfact --quick`` at its dt for 12 of its 60
+     steps (no B3b launch) against the same run in the default mode (rim
+     envelope within 1e-8).
+
 Phases 3, 4 (float64), 5A, 5B, 6 and 9b each profile one more RK4 step with
 torch.profiler, outside the timed window: device kernel time by category and
 the device's busy share. Each phase's own time is printed.
 
 Prints one JSON line describing the kernels (B1's ``orders_on_path``: the
-orders phases 7-8 launched it at; the shard modes' ``launches`` from 9b's
-and 9c's runs), then as the last line
+orders phases 7-8 launched it at; B2's, B3a's and B3b's: the orders phases
+4, 5, 10a and 10b launched them at, with their p = 8..10 rows under
+``wide_orders``; the shard modes' ``launches`` from 9b's and 9c's runs),
+then as the last line
 ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -349,35 +388,6 @@ def _csr_cuda(A, dtype):
         torch.tensor(A.data), size=A.shape).to(device="cuda", dtype=dtype)
 
 
-def _csr_of_elements(op, dtype, chunk: int = 4096):
-    """The assembled element operator as a torch sparse CSR tensor, built
-    on the card: the element matrices of ``chunk`` elements at a time
-    (float64, rounded to ``dtype``) into one COO list, duplicates summed by
-    ``coalesce`` (5.1e8 entries for 32,768 elements at p=4); 32-bit indices
-    as :func:`_csr_cuda`'s."""
-    import torch
-    ed = torch.as_tensor(op.space.elem_dofs, device=op.device)
-    ne, L = ed.shape
-    idx = torch.empty(2, ne * L * L, dtype=torch.int64, device=op.device)
-    val = torch.empty(ne * L * L, dtype=dtype, device=op.device)
-    for s in range(0, ne, chunk):
-        e = ed[s:s + chunk]
-        m = e.shape[0]
-        part = slice(s * L * L, (s + m) * L * L)
-        idx[0, part] = e[:, :, None].expand(m, L, L).reshape(-1)
-        idx[1, part] = e[:, None, :].expand(m, L, L).reshape(-1)
-        val[part] = op.element_matrices(slice(s, s + m)).reshape(-1).to(dtype)
-    A = torch.sparse_coo_tensor(idx, val, (op.n_dofs, op.n_dofs))
-    del idx, val
-    A = A.coalesce().to_sparse_csr()
-    if A.values().numel() >= 2 ** 31:
-        raise ValueError("the nonzeros do not fit 32-bit indices")
-    A = torch.sparse_csr_tensor(A.crow_indices().int(), A.col_indices().int(),
-                                A.values(), size=A.shape)
-    torch.cuda.empty_cache()
-    return A
-
-
 def phase_device_and_build(report: dict) -> None:
     import torch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -392,10 +402,12 @@ def phase_device_and_build(report: dict) -> None:
     logs = _build.build_libraries(KERNEL_SOURCES)
     for name in KERNEL_SOURCES:
         _build.load_library(name)
+    from lpfem_torch import native
+    native._lib()                           # the host library, with g++
     secs = time.perf_counter() - t0
     report["build_s"] = secs
-    print(f"[1] built and loaded {', '.join(KERNEL_SOURCES)} in {secs:.2f} s "
-          f"({_build.BUILD_DIR})")
+    print(f"[1] built and loaded {', '.join(KERNEL_SOURCES)} and the native "
+          f"host library in {secs:.2f} s ({_build.BUILD_DIR})")
     report["ptxas"] = {}
     for name, text in logs.items():
         for kernel, regs, spills in _ptxas_kernels(text):
@@ -502,7 +514,8 @@ def phase_sep_apply(report: dict) -> dict:
     from lpfem_torch.kernels import sep_apply as ksep
     from lpfem_torch.kernels.sep_apply import (choose_tiles, sep_apply,
                                                sep_apply_reference)
-    from lpfem_torch.operators import AffineLatticeLaplace, SeparableLattice
+    from lpfem_torch.operators import (AffineLatticeLaplace, SeparableLattice,
+                                       assemble_csr)
     from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace, grid_lines
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -646,7 +659,7 @@ def phase_sep_apply(report: dict) -> dict:
                 # at p=4 assembled on the card from the element form of the
                 # same tank, which has the lattice's numbering
                 if li == 0:
-                    A = _csr_of_elements(AffineLatticeLaplace(
+                    A = assemble_csr(AffineLatticeLaplace(
                         CurvedLatticeSpace(_plain_mesh(), sp.p), dtype,
                         "cuda"), dtype)
                 else:
@@ -706,7 +719,7 @@ def phase_pa_apply(report: dict) -> dict:
     from lpfem_torch.cylmesh import make_half_cylinder_tank
     from lpfem_torch.kernels.pa_apply import (pa_apply_element,
                                               pa_apply_element_reference)
-    from lpfem_torch.operators import ElementLaplace
+    from lpfem_torch.operators import ElementLaplace, assemble_csr
     from lpfem_torch.space import CurvedLatticeSpace
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -781,7 +794,7 @@ def phase_pa_apply(report: dict) -> dict:
             x = torch.randn(space.n_dofs, generator=gen, device="cuda",
                             dtype=dtype)
             full = _time_chain(op.apply, [(x,)])
-            A = _csr_of_elements(op, dtype)
+            A = assemble_csr(op, dtype)
             _, rel = _rel_err(A @ x, op.apply(x))
             if not rel <= TOL[dt]:
                 raise AssertionError(f"CSR SpMV disagrees with the element "
@@ -875,7 +888,7 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
     from lpfem_torch.kernels.sep_apply import sep_apply
     from lpfem_torch.mesh import make_wave_tank_finite
     from lpfem_torch.operators import (AffineLatticeLaplace, ElementLaplace,
-                                       SeparableLattice)
+                                       SeparableLattice, assemble_csr)
     from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1066,7 +1079,7 @@ def phase_affine(report: dict) -> tuple[dict, dict]:
                 if ess:
                     # cuSPARSE yardstick: SpMV of the assembled operator
                     # (without the top-plane identity)
-                    A = _csr_of_elements(three, dtype)
+                    A = assemble_csr(three, dtype)
                     _, rel = _rel_err(A @ x, three.apply(x))
                     if not rel <= TOL[dt]:
                         raise AssertionError(f"CSR SpMV disagrees: {rel:.3e}")
@@ -2121,20 +2134,16 @@ def _window_csr(lv, elop, dtype):
     block-diagonal CSR matrix on the card, from the element matrices of
     ``elop`` (the same tank in element form), each shard's elements in its
     window numbering: the cuSPARSE yardstick of the shard kernels."""
-    import types
-
     import numpy as np
     import torch
+    from lpfem_torch.operators import assemble_csr
     pt, w = lv.pt, lv.pt.win
     ed = np.asarray(elop.space.elem_dofs)
     z, rem = ed // w["plane"], ed % w["plane"]
     shard = np.asarray(pt.part)[:, None]
     loc = (z - w["p"] * np.asarray(w["ez0"])[shard]) * w["plane"] + rem
-    adapter = types.SimpleNamespace(
-        space=types.SimpleNamespace(elem_dofs=shard * (lv.N_max + 1) + loc),
-        device=elop.device, n_dofs=lv.ndev * (lv.N_max + 1),
-        element_matrices=elop.element_matrices)
-    A = _csr_of_elements(adapter, dtype)
+    A = assemble_csr(elop, dtype, elem_dofs=shard * (lv.N_max + 1) + loc,
+                     n=lv.ndev * (lv.N_max + 1))
     torch.cuda.empty_cache()
     return A
 
@@ -2508,6 +2517,528 @@ def phase_sharded_drivers(report: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+WIDE_ORDERS = (8, 9, 10)
+WIDE_LEAN_REFS = 1        # 10a: path A's leaning tank at one refinement
+                          # (4,096 hexes; phase 5A runs two, 32,768)
+WIDE_RUN_TANK = (6, 2, 2)  # 10a's one-step runs: the leaning tank's hexes
+GMSH_FILE = "chiprun_out/cylinder_half.msh"
+GMSH_STEPS = 2
+ASM_SS_STEPS = 2
+ASM_SHARDS = 4
+SUMFACT_STEPS = 12        # 10g: --quick's dt (T/20), cut from its 60 steps
+
+
+def _same_bits_and_plain(fn, plain, args, label, dt) -> float:
+    """Run ``fn(*args)`` twice (the same bits required) and hold it against
+    ``plain(*args)`` at ``TOL``; returns the max abs error."""
+    import torch
+    y = fn(*args)
+    if not torch.equal(y, fn(*args)):
+        raise AssertionError(f"{label} {dt}: two calls differ")
+    abs_err, rel = _rel_err(y, plain(*args))
+    print(f"[10a] {label:52s} {dt:8s} rel_err={rel:.2e}")
+    if not rel <= TOL[dt]:
+        raise AssertionError(f"kernel disagrees with plain version: "
+                             f"{label} {dt}: {rel:.3e}")
+    return abs_err
+
+
+def _wide_row(name, fn, plain, args, kernel_names, nbytes, flops, dt,
+              **extra) -> dict:
+    """Device ms per launch (torch.profiler, each kernel's mean per recorded
+    launch), ms per call (CUDA events), the plain version's ms and the
+    bound of one call at the shapes of ``args``."""
+    import torch
+    size = args[0].element_size()
+    n_sets = max(1, -(-60_000_000 // (2 * args[0].numel() * size)))
+    sets = [tuple(a.clone() if i == 0 else a for i, a in enumerate(args))
+            for _ in range(n_sets)]
+    ms = _time_chain(fn, sets)
+    acts = _profile_calls(fn, sets)
+    act = _per_call([a for a in acts if any(k in a[0] for k in kernel_names)]
+                    or acts)
+    dev = act["launch_ms"] or None
+    plain_ms = _time_chain(plain, sets[:1], reps=3)
+    bound, by = _bound(nbytes, flops, PEAK_FLOPS[dt])
+    row = dict(name=name, dtype=dt, ms=dev if dev is not None else ms,
+               device_ms=dev, call_ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, library_ms=None, flops=flops,
+               kernels_per_call_recorded=act["kernels_per_call"], **extra)
+    print(f"[10a] time {name} p={extra['p']} {dt}: kernel {row['ms']:.4f} ms "
+          f"on the device ({ms:.4f} ms per call), plain {plain_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by})")
+    del sets
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_wide_orders(report: dict) -> dict:
+    """10a: B3b, B3a and B2 at p = 8, 9, 10 at real shapes against their
+    plain versions with their times; then the paths at those orders."""
+    import torch
+    import lpfem_torch
+    import numpy as np
+    from lpfem_torch.experiments.diffraction import build_problem
+    from lpfem_torch.experiments.leaning_tank import leaning_tank
+    from lpfem_torch.geometry import affine_c6
+    from lpfem_torch.kernels import lattice_apply as klat
+    from lpfem_torch.kernels import pa_apply as kpa
+    from lpfem_torch.mesh import Mesh
+    from lpfem_torch.operators import AffineLatticeLaplace, ElementLaplace
+    from lpfem_torch.space import CurvedLatticeSpace
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    dims, sizes = _tank_dims()
+    lean = leaning_tank(*dims, *sizes, ref_levels=WIDE_LEAN_REFS, lean="z")
+    cyl = _study_mesh()
+    rows = {"pa_apply_element": [], "pa_apply_affine": [],
+            "lattice_affine_apply": []}
+    for p in WIDE_ORDERS:
+        q, p1 = p + 1, p + 1
+        L, Q = p1 ** 3, q ** 3
+        el64 = ElementLaplace(CurvedLatticeSpace(cyl, p), torch.float64,
+                              "cuda")
+        # the metric constants from 2 Gauss points: at q = 11 the float64
+        # affine test (1e-12, lpfem's) rejects this tank by round-off, and
+        # the operator rule then takes B3b (lpfem too); the kernels take it
+        lspace = CurvedLatticeSpace(lean, p)
+        lat64 = AffineLatticeLaplace(lspace, torch.float64, "cuda",
+                                     C6=affine_c6(lspace, 2, np.float64))
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype)[6:]
+            size = torch.empty((), dtype=dtype).element_size()
+            # B3b on the study tank's curved elements
+            G6q, B, D = (t.to(dtype) for t in (el64.G6q, el64.B, el64.D))
+            ne = G6q.shape[0]
+            u = torch.randn(ne, L, generator=gen, device="cuda", dtype=dtype)
+            b3b = lambda a, G6q=G6q, B=B, D=D: kpa.pa_apply_element(
+                a, G6q, B, D)
+            ref = lambda a, G6q=G6q, B=B, D=D: \
+                kpa.pa_apply_element_reference(a, G6q, B, D)
+            err = _same_bits_and_plain(b3b, ref, (u,),
+                                       f"pa_apply_element p={p} ne={ne}", dt)
+            rows["pa_apply_element"].append(_wide_row(
+                "pa_apply_element", b3b, ref, (u,), ("pa_element_kernel",),
+                size * (2 * ne * L + ne * 6 * Q + 2 * q * p1),
+                _element_flops(ne, p1, q), dt, p=p, ne=ne,
+                max_abs_err=err))
+            del u, G6q
+            # B3a on the leaning tank's E-vectors, B2 on its lattice
+            C6, w3, B, D = (t.to(dtype) for t in (lat64.C6, lat64.w3,
+                                                   lat64.B, lat64.D))
+            ne, n = C6.shape[0], lat64.n_dofs
+            tables = 6 * ne + Q + 2 * q * p1
+            flops = _element_flops(ne, p1, q, affine=True)
+            x = torch.randn(n, generator=gen, device="cuda", dtype=dtype)
+            u = lat64.gather(x)
+            b3a = lambda a, C6=C6, w3=w3, B=B, D=D: kpa.pa_apply_affine(
+                a, C6, w3, B, D)
+            ref = lambda a, C6=C6, w3=w3, B=B, D=D: \
+                kpa.pa_apply_affine_reference(a, C6, w3, B, D)
+            err = _same_bits_and_plain(b3a, ref, (u,),
+                                       f"pa_apply_affine p={p} ne={ne}", dt)
+            rows["pa_apply_affine"].append(_wide_row(
+                "pa_apply_affine", b3a, ref, (u,), ("pa_affine_kernel",),
+                size * (2 * ne * L + tables), flops, dt, p=p, ne=ne,
+                max_abs_err=err))
+            del u
+            sd, per = lat64.space.elem_dims, lat64.periodic
+            b2 = lambda v, C6=C6, w3=w3, B=B, D=D: klat.lattice_affine_apply(
+                v, C6, w3, B, D, sd, per, True)
+            ref = lambda v, C6=C6, w3=w3, B=B, D=D: \
+                klat.lattice_affine_apply_reference(v, C6, w3, B, D, sd, per,
+                                                    True)
+            err = _same_bits_and_plain(b2, ref, (x,),
+                                       f"lattice_affine_apply p={p} n={n}",
+                                       dt)
+            rows["lattice_affine_apply"].append(_wide_row(
+                "lattice_affine_apply", b2, ref, (x,),
+                ("lattice_affine_kernel", "lattice_affine_fold"),
+                size * (2 * n + tables), flops, dt, p=p, ne=ne, dofs=n,
+                max_abs_err=err))
+            del x, C6
+        del el64, lat64
+        torch.cuda.empty_cache()
+
+    # the paths at p = 8..10, one RK4 step each, counts set to 0 just before
+    # and read just after: B3b on the small cylinder tank, B2 on a leaning
+    # tank with its lattice declared, B3a on the same tank without it
+    small = leaning_tank(*WIDE_RUN_TANK, *sizes, lean="z")
+    plain_mesh = Mesh(small.verts, small.elems, small.corner_coords,
+                      small.bdr_quads, small.bdr_attrs, small.periodic,
+                      periodic_axes=small.periodic_axes)
+    runs = {}
+    for p in WIDE_ORDERS:
+        cfg = lpfem_torch.preset("scaling_base", order=p, dtype="float64",
+                                 precond="pmg", cheb_degree=4,
+                                 cg_rtol_sq=1e-20, cg_max_iter=400,
+                                 nsteps=40, **LEAN)
+        for kernel, make in (
+                ("pa_apply_element", lambda p=p: build_problem(
+                    "cuda", order=p, n_theta=12, n_r=6, dr_max=0.0, nz=1,
+                    nsteps=35, periods=1.0)),
+                ("lattice_affine_apply", lambda cfg=cfg: lpfem_torch.Problem(
+                    cfg, "cuda", mesh=small)),
+                ("pa_apply_affine", lambda cfg=cfg: lpfem_torch.Problem(
+                    cfg, "cuda", mesh=plain_mesh))):
+            prob = make()
+            _zero_counts()
+            t0 = time.perf_counter()
+            _, y, phi = prob.run(n_steps=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _read_counts()
+            prob.check_state(y, phi)
+            stats = prob.last_solver_stats
+            by_p = counts[f"{kernel}_by_p"]
+            print(f"[10a] one RK4 step at p={p} on {type(prob.op).__name__} "
+                  f"({prob.space.n_dofs} dofs): {wall:.2f} s, "
+                  f"{stats.total_iters} inner CG iterations (max "
+                  f"{stats.max_iters}), {kernel} launches by p {by_p}")
+            if stats.unconverged or by_p.get(p, 0) <= 0:
+                raise AssertionError(f"p={p} {kernel}: {stats}, {counts}")
+            runs[f"{kernel} p={p}"] = dict(dofs=prob.space.n_dofs,
+                                           wall_s=wall, launches_by_p=by_p,
+                                           total_inner_iters=stats.total_iters)
+            del prob
+    report["wide_orders"] = dict(rows=rows, runs=runs,
+                                 lean_refs=WIDE_LEAN_REFS)
+    orders = {k: sorted({p for r, v in runs.items() if r.startswith(k + " ")
+                         for p in v["launches_by_p"]}) for k in rows}
+    return dict(rows=rows, orders=orders)
+
+
+def phase_gmsh(report: dict) -> dict:
+    """10b: the study tank's linear corners through a Gmsh v2.2 file, both
+    parsers, SetCurvature with the rim snap, and the diffraction driver on
+    the import."""
+    import numpy as np
+    import torch
+    from lpfem_torch import native
+    from lpfem_torch.experiments import diffraction
+    from lpfem_torch.mesh import (cylinder_projector, load_gmsh,
+                                  parse_gmsh_python, save_gmsh,
+                                  set_curvature)
+
+    mesh = _study_mesh()
+    save_gmsh(mesh, GMSH_FILE)
+    t0 = time.perf_counter()
+    nat = native.parse_gmsh(GMSH_FILE)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = parse_gmsh_python(GMSH_FILE)
+    t_py = time.perf_counter() - t0
+    for a, b in zip(nat, py):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError("the native and the Python Gmsh parsers "
+                                 "disagree")
+    m = load_gmsh(GMSH_FILE)
+    attrs = sorted(set(m.bdr_attrs.tolist()))
+    if m.n_elems != mesh.n_elems or attrs != [1, 2, 3]:
+        raise AssertionError(f"{m.n_elems} hexes, attributes {attrs}")
+    set_curvature(m, 4, {3: cylinder_projector(4.0, 0.0, 0.5)})
+    r = np.hypot(m.geom_nodes[..., 0] - 4.0, m.geom_nodes[..., 1])
+    rim = np.abs(r - 0.5) < 1e-3
+    off = float(np.max(np.abs(r[rim] - 0.5)))
+    print(f"[10b] {GMSH_FILE}: {m.n_elems} hexes, attributes {attrs}; "
+          f"native parse {t_nat:.3f} s, Python {t_py:.3f} s, integer-equal; "
+          f"rim geometry nodes {int(rim.sum())} within {off:.2e} of the "
+          "circle after SetCurvature(4)")
+    if not off <= 1e-12:
+        raise AssertionError(f"rim nodes {off} off the circle")
+    _zero_counts()
+    res = diffraction.main([
+        "--gmsh", GMSH_FILE, "--nsteps", str(GMSH_STEPS), "--periods",
+        str(GMSH_STEPS / 35), "--cy", "0", "--out",
+        "chiprun_out/cylinder-diffraction-gmsh.txt", "--out-exact",
+        "chiprun_out/cylinder_boundary-torch.txt", "--compare", ""])
+    counts = _read_counts()
+    amax, H = res.pop("max_abs_eta"), 0.01
+    vtu = Path(res["envelope_vtu"])
+    print(f"[10b] diffraction --gmsh: {res['dofs']} dofs, set-up "
+          f"{res['setup_s']:.2f} s, {res['wall_s'] / GMSH_STEPS:.3f} s per "
+          f"step, {res['total_inner_iters']} inner CG iterations (max "
+          f"{res['max_iters']} per solve: the cold first one's), B3b by "
+          f"order {counts['pa_apply_element_by_p']}, max|eta| {amax:.4e}, "
+          f"{vtu} {vtu.stat().st_size} bytes")
+    if (res["dofs"] != CYL_DOFS or res["unconverged"]
+            or not 0.0 < amax < H
+            or counts["pa_apply_element"] <= 0 or vtu.stat().st_size <= 0
+            or b'format="appended"' not in vtu.read_bytes()[:4096]):
+        raise AssertionError(f"diffraction --gmsh: {res}, {counts}")
+    out = dict(native_parse_s=t_nat, python_parse_s=t_py, rim_off=off,
+               dofs=res["dofs"], setup_s=res["setup_s"],
+               wall_per_step_s=res["wall_s"] / GMSH_STEPS,
+               max_iters=res["max_iters"],
+               total_inner_iters=res["total_inner_iters"],
+               b3b_by_p=counts["pa_apply_element_by_p"], max_abs_eta=amax)
+    report["gmsh"] = out
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_assembled(report: dict) -> dict:
+    """10c: apply_mode="assembled" on one card."""
+    import dataclasses
+    import torch
+    import lpfem_torch
+    from lpfem_torch.operators import AssembledLaplace
+
+    out = {}
+    # pf_linear_par at its own size, assembled against the PA operator
+    runs = {}
+    for mode in ("pallas", "assembled"):
+        prob = lpfem_torch.Problem(lpfem_torch.preset(
+            "pf_linear_par", apply_mode=mode, dtype="float64"), "cuda")
+        _zero_counts()
+        t0 = time.perf_counter()
+        t, y, phi = prob.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prob.check_state(y, phi)
+        st = prob.last_solver_stats
+        if st.unconverged or st.n_solves != 4 * prob.cfg.nsteps:
+            raise AssertionError(f"pf_linear_par {mode}: {st}")
+        runs[mode] = dict(eta=y[:prob.surf.n_dofs].clone(), wall_s=wall,
+                          total_inner_iters=st.total_iters,
+                          dofs=prob.space.n_dofs, counts=_read_counts())
+        print(f"[10c] pf_linear_par {mode}: {prob.space.n_dofs} dofs, "
+              f"{prob.cfg.nsteps} steps in {wall:.2f} s, {st.total_iters} "
+              f"Jacobi-CG iterations, launches {runs[mode]['counts']}")
+    a, b = runs["pallas"]["eta"], runs["assembled"]["eta"]
+    d, amax = float((a - b).abs().max()), float(a.abs().max())
+    print(f"[10c] final eta assembled vs PA: {d:.3e} (limit 1e-9 of "
+          f"max|eta| = {amax:.3e})")
+    if not d <= 1e-9 * amax:
+        raise AssertionError(f"assembled pf_linear_par differs by {d}")
+    out["pf_linear_par"] = dict(max_abs_diff=d, max_abs_eta=amax, **{
+        f"{k}_{f}": v[f] for k, v in runs.items()
+        for f in ("wall_s", "total_inner_iters")})
+
+    # the ss.cpp tank at refs 2 in float64, two RK4 steps
+    cfg = lpfem_torch.preset("scaling_base", **dict(CFG, dtype="float64"))
+    pa = lpfem_torch.Problem(cfg, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    A = AssembledLaplace(pa.op)
+    torch.cuda.synchronize()
+    asm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(pa.space.n_dofs, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    _, rel = _rel_err(A.apply(x), pa.op.apply(x))
+    if not rel <= ELEMENT_CSR_TOL_F64:
+        raise AssertionError(f"assembled apply vs B1: {rel:.3e}")
+    spmv = _time_chain(A.apply, [(x,)])
+    spmv_dev = _device_ms(A.apply, [(x,)], None)
+    b1 = next(r for r in report["sep_apply_times"] if r["level"] == 0
+              and r["dtype"] == "float64" and not r["ess_top"])
+    print(f"[10c] ss.cpp tank refs 2: assembled {A.nnz} nonzeros in "
+          f"{asm_s:.2f} s (peak {_gib(peak)} above the PA problem, "
+          f"{_gib(held)} held); SpMV {spmv_dev or spmv:.4f} ms per apply on "
+          f"the device ({spmv:.4f} ms per call) beside B1 float64 "
+          f"{b1['ms']:.4f} ms; vs B1 rel {rel:.2e}")
+    del A
+    torch.cuda.empty_cache()
+    asm = lpfem_torch.Problem(dataclasses.replace(cfg, apply_mode="assembled"),
+                              "cuda", lmax=pa.precond.lmax)
+    res = {}
+    for tag, prob in (("pa", pa), ("assembled", asm)):
+        _zero_counts()
+        t0 = time.perf_counter()
+        t, y, phi = prob.run(n_steps=ASM_SS_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prob.check_state(y, phi)
+        st = prob.last_solver_stats
+        if st.unconverged:
+            raise AssertionError(f"ss.cpp {tag}: {st}")
+        res[tag] = dict(y=y, wall_s=wall, total_inner_iters=st.total_iters,
+                        max_iters=st.max_iters)
+    d = float((res["pa"]["y"] - res["assembled"]["y"]).abs().max())
+    ymax = float(res["pa"]["y"].abs().max())
+    its = [res[k]["total_inner_iters"] for k in ("pa", "assembled")]
+    print(f"[10c] ss.cpp tank {ASM_SS_STEPS} RK4 steps, assembled vs PA: "
+          f"max|dy| {d:.3e} (limit 1e-9 of max|y| = {ymax:.3e}); CG "
+          f"iterations {its}; walls {res['pa']['wall_s']:.3f} / "
+          f"{res['assembled']['wall_s']:.3f} s")
+    if not d <= 1e-9 * ymax or its[0] != its[1]:
+        raise AssertionError(f"assembled ss.cpp run: {d}, {its}")
+    out["ss_refs2"] = dict(nnz=asm.op_solve.nnz, assembly_s=asm_s,
+                           peak_assembly_bytes=peak, held_bytes=held,
+                           spmv_ms=spmv, spmv_device_ms=spmv_dev,
+                           b1_f64_ms=b1["ms"], max_abs_diff=d, max_abs_y=ymax,
+                           iters=its, walls_s=[res[k]["wall_s"]
+                                               for k in ("pa", "assembled")])
+    report["assembled"] = out
+    del pa, asm, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_assembled(report: dict) -> dict:
+    """10d: the ELL level of pf_linear_par over 4 shards against one card."""
+    import numpy as np
+    import torch
+    import lpfem_torch
+    from lpfem_torch.shard import ShardedProblem
+
+    prob = lpfem_torch.Problem(lpfem_torch.preset(
+        "pf_linear_par", apply_mode="assembled", dtype="float64"), "cuda")
+    sprob = ShardedProblem(prob, ASM_SHARDS)
+    lv, pt = sprob.fine, sprob.pt
+    if lv.mode != "ell":
+        raise AssertionError(f"the fine level is {lv.mode}, not ell")
+    x = np.random.default_rng(12).standard_normal(prob.space.n_dofs)
+    y_ref = prob.op_solve.apply(torch.tensor(x, device="cuda"))
+    ys = lv.apply_own(torch.tensor(pt.stack_dof(x), device="cuda"))
+    y = torch.tensor(pt.unstack_dof(ys.cpu().numpy()), device="cuda")
+    _, rel = _rel_err(y, y_ref)
+    _zero_counts()
+    _, y1, _ = prob.run(n_steps=1)
+    _, y2, phi2 = sprob.run(n_steps=1)
+    sprob.check_state(y2, phi2)
+    d = float((y1 - y2).abs().max())
+    ymax = float(y1.abs().max())
+    print(f"[10d] pf_linear_par over {ASM_SHARDS} shards: ELL apply vs one "
+          f"card rel {rel:.2e} (limit 1e-12); one step max|dy| {d:.3e} "
+          f"(limit 1e-10 of max|y| = {ymax:.3e})")
+    if not (rel <= 1e-12 and d <= 1e-10 * ymax):
+        raise AssertionError(f"sharded assembled: {rel}, {d}")
+    out = dict(ell_rel=rel, step_max_abs_diff=d, max_abs_y=ymax,
+               nnz=int(lv.A.values().numel()))
+    report["sharded_assembled"] = out
+    return out
+
+
+def phase_native_io(report: dict) -> dict:
+    """10e: path B's set-up with the native numbering (read from phase 5B),
+    and the binary against the ASCII VTU writer."""
+    import numpy as np
+    import lpfem_torch
+    from lpfem_torch.io import write_vtu
+    from lpfem_torch.space import LatticeSpace
+
+    setup_b = report["path_b"]["setup_s"]
+    print(f"[10e] path B set-up with the native numbering: {setup_b:.2f} s "
+          "(phase 5B; 13.6-23.2 s with NumPy's in earlier runs)")
+    rows = []
+    for refs, kinds in ((2, (True,)), (1, (True, False))):
+        sp = LatticeSpace.from_config(lpfem_torch.preset("scaling_base",
+                                                         ref_levels=refs))
+        f = np.random.default_rng(refs).standard_normal(sp.n_dofs)
+        for binary in kinds:
+            path = Path(f"chiprun_out/volume-refs{refs}-"
+                        f"{'binary' if binary else 'ascii'}.vtu")
+            t0 = time.perf_counter()
+            write_vtu(str(path), sp, {"phi": f}, binary=binary)
+            secs = time.perf_counter() - t0
+            rows.append(dict(refs=refs, dofs=sp.n_dofs, binary=binary,
+                             bytes=path.stat().st_size, seconds=secs))
+            print(f"[10e] VTU refs {refs} ({sp.n_dofs} dofs) "
+                  f"{'binary' if binary else 'ASCII'}: {rows[-1]['bytes']} "
+                  f"bytes in {secs:.3f} s")
+            path.unlink()
+    out = dict(path_b_setup_s=setup_b, vtu=rows)
+    report["native_io"] = out
+    return out
+
+
+def phase_glvis(report: dict) -> dict:
+    """10f: pf_run --glvis-every to a listener thread on localhost."""
+    import socket
+    import threading
+    import lpfem_torch
+    from lpfem_torch.experiments import pf_run
+    from lpfem_torch.glvis import solution_text
+
+    srv = socket.create_server(("127.0.0.1", 0))
+    port = srv.getsockname()[1]
+    got = []
+
+    def serve():
+        conn, _ = srv.accept()
+        with conn:
+            buf = b""
+            while chunk := conn.recv(1 << 16):
+                buf += chunk
+        got.append(buf)
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    try:
+        _zero_counts()
+        _, y, _ = pf_run.main([
+            "--preset", "pf_linear_periodic", "--nsteps", "40",
+            "--glvis-every", "40", "--glvis-host", "127.0.0.1",
+            "--glvis-port", str(port), "--checkpoint-every", "40"])
+        counts = _read_counts()
+        th.join(timeout=60)
+    finally:
+        srv.close()
+    if th.is_alive() or not got:
+        raise AssertionError("the GLVis listener received nothing")
+    prob = lpfem_torch.Problem(lpfem_torch.preset("pf_linear_periodic",
+                                                  nsteps=40), "cuda")
+    want = solution_text(prob.surf, y[:prob.surf.n_dofs], keys="Rjlc")
+    print(f"[10f] pf_run --glvis-every 40: {len(got[0])} bytes received on "
+          f"localhost:{port}, equal to solution_text of the final state: "
+          f"{got[0] == want.encode()}; B1 launches {counts['sep_apply']}")
+    if got[0] != want.encode() or counts["sep_apply"] <= 0:
+        raise AssertionError("GLVis bytes differ from solution_text")
+    out = dict(bytes=len(got[0]))
+    report["glvis"] = out
+    return out
+
+
+def phase_new_drivers(report: dict) -> dict:
+    """10g: apply_bench --cylinder and diffraction --apply-mode sumfact
+    (against the same run in the default mode)."""
+    import numpy as np
+    from lpfem_torch.experiments import apply_bench, diffraction
+
+    _zero_counts()
+    tiers = apply_bench.main(["--cylinder", "--iters", "30",
+                              "--repeats", "3"])
+    counts = _read_counts()
+    print(f"[10g] apply_bench --cylinder: {tiers}; B3b launches "
+          f"{counts['pa_apply_element']}")
+    if counts["pa_apply_element"] <= 0:
+        raise AssertionError("apply_bench --cylinder launched no B3b")
+    res, rims = {}, {}
+    for mode in ("sumfact", "pallas"):
+        _zero_counts()
+        rim = f"chiprun_out/cylinder-diffraction-{mode}.txt"
+        res[mode] = diffraction.main([
+            "--apply-mode", mode, "--quick", "--nsteps", str(SUMFACT_STEPS),
+            "--periods", str(SUMFACT_STEPS / 20), "--out", rim,
+            "--out-exact", "chiprun_out/cylinder_boundary-quick.txt",
+            "--compare", ""])
+        res[mode]["b3b_launches"] = _read_counts()["pa_apply_element"]
+        rims[mode] = np.loadtxt(rim, ndmin=2)
+    d = float(np.max(np.abs(rims["sumfact"][:, 1] - rims["pallas"][:, 1])))
+    scale = float(np.max(np.abs(rims["pallas"][:, 1])))
+    sf = res["sumfact"]
+    print(f"[10g] diffraction --apply-mode sumfact --quick, "
+          f"{SUMFACT_STEPS} steps: {sf['wall_s']:.2f} s (pallas "
+          f"{res['pallas']['wall_s']:.2f} s), rim envelope within {d:.3e} of "
+          f"the pallas run's (limit 1e-8 of {scale:.3e}), B3b launches "
+          f"{sf['b3b_launches']} (none: the einsums) against "
+          f"{res['pallas']['b3b_launches']}")
+    if (sf["unconverged"] or sf["b3b_launches"] != 0
+            or res["pallas"]["b3b_launches"] <= 0 or not d <= 1e-8 * scale):
+        raise AssertionError(f"diffraction sumfact: {d}, {sf}")
+    out = dict(apply_bench_cylinder=tiers, sumfact_rim_max_abs_diff=d,
+               **{f"{k}_quick_wall_s": v["wall_s"] for k, v in res.items()})
+    report["new_drivers"] = out
+    return out
+
+
 def main() -> int:
     import warnings
     # torch's notes that sparse CSR is beta / unchecked (the yardsticks)
@@ -2546,7 +3077,22 @@ def main() -> int:
     shard = timed("9b sharded path", phase_sharded_path)
     lean = timed("9c sharded leaning tank", phase_sharded_lean)
     timed("9d sharded drivers", phase_sharded_drivers)
+    wide = timed("10a wide orders", phase_wide_orders)
+    gmsh = timed("10b gmsh", phase_gmsh)
+    timed("10c assembled", phase_assembled)
+    timed("10d sharded assembled", phase_sharded_assembled)
+    timed("10e native and io", phase_native_io)
+    timed("10f glvis", phase_glvis)
+    timed("10g drivers", phase_new_drivers)
     report["total_s"] = time.perf_counter() - t_start
+    element_orders = {
+        "pa_apply_element": set(report["diffraction"]["float64"][
+            "b3b_calls_per_step_by_p"]) | set(gmsh["b3b_by_p"]),
+        "pa_apply_affine": set(report["path_b"]["launches_per_step_by_p"]),
+        "lattice_affine_apply": set(report["path_a"][
+            "launches_per_step_by_p"])}
+    element_orders = {k: sorted(v | set(wide["orders"][k]))
+                      for k, v in element_orders.items()}
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"total {report['total_s']:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2573,18 +3119,24 @@ def main() -> int:
                  "b3b_calls_per_step_by_p"],
              full_apply_ms=pa["full_apply_ms"],
              library_full_apply_ms=pa["library_full_apply_ms"],
+             orders_on_path=element_orders["pa_apply_element"],
+             wide_orders=wide["rows"]["pa_apply_element"],
              **{k: pa[k] for k in keys if k != "library_ms"}),
         dict(name="pa_apply_affine", route="cuda",
              source="lpfem_torch/csrc/pa_apply.cu",
              replaces="lpfem/kernels/pa_apply.py:73",
              launches=launches["B"],
              launches_per_call=b3a["launches_per_call"], redesigned=True,
+             orders_on_path=element_orders["pa_apply_affine"],
+             wide_orders=wide["rows"]["pa_apply_affine"],
              **{k: b3a[k] for k in keys}),
         dict(name="lattice_affine_apply", route="cuda",
              source="lpfem_torch/csrc/lattice_apply.cu",
              replaces="lpfem/kernels/lattice_apply.py:238",
              launches=launches["A"],
              launches_per_call=b2["launches_per_call"], redesigned=True,
+             orders_on_path=element_orders["lattice_affine_apply"],
+             wide_orders=wide["rows"]["lattice_affine_apply"],
              three_step_device_ms=b2["three_step_device_ms"],
              b1_device_ms=b2["b1_device_ms"],
              **{k: b2[k] for k in keys}),

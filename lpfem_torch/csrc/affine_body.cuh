@@ -19,10 +19,15 @@
 // Designed for Hopper, after MFEM's 3-D partial-assembly diffusion kernels:
 //
 // - Fixed orders. P1 = p+1 and Q = q are template parameters; every loop
-//   unrolls and every shared-memory index is a compile-time stride. P1 = Q = 0
-//   is the general instantiation: the orders come at run time, the loops
-//   unroll to kMaxN with a guard, so the register arrays keep compile-time
-//   indices there too.
+//   unrolls and every shared-memory index is a compile-time stride. P1 = Q =
+//   kGeneral (n = max(p+1, q) <= 8) and P1 = Q = kWide (9 <= n <= 11, the
+//   orders p = 8..10) are the general instantiations: the orders come at run
+//   time, the loops unroll to the instantiation's reach (extent<P>()) with a
+//   guard, so the register arrays keep compile-time indices there too. Two
+//   of them, so that the orders up to 8 keep the register budget they had;
+//   at n = 11 the column's 11-value arrays spill in double (nvcc -Xptxas -v,
+//   chip_smoke.py phase 1), and the tiles of a double block need more than
+//   48 KB of shared memory (launch_smem).
 // - Columns, with z in registers. One thread owns one (x, y) column of an
 //   element, n = max(p+1, q) by n threads per element. The z contractions,
 //   forward and back, and the metric at every Gauss point run in registers;
@@ -31,8 +36,8 @@
 // - An element inside one warp. Where n^2 <= 32 (every fixed order, p <= 4)
 //   floor(32 / n^2) elements share a warp (1 at p = 4, 3 at p = 2, 8 at
 //   p = 1) and every exchange needs only __syncwarp: the body has no block
-//   barrier. The general instantiation gives an element one or two whole
-//   warps and syncs the block.
+//   barrier. The general instantiations give an element one to four whole
+//   warps and sync the block.
 // - Tables. B, D and w3 (a few hundred bytes) are loaded into shared memory
 //   once per block, behind the block's only __syncthreads, and read as
 //   broadcasts.
@@ -52,11 +57,29 @@ namespace lpfem {
 namespace affine {
 
 constexpr int kThreads = 128;   // threads per block
-constexpr int kMaxN = 8;        // p+1 <= 8 and q <= 8
+constexpr int kMaxN = 11;       // p+1 <= 11 and q <= 11 (p <= 10)
+constexpr int kGeneralN = 8;    // the reach of the first general instantiation
 constexpr int kBufs = 5;        // exchange tiles per element
+
+// Template orders (P1 = Q) of the two general instantiations.
+constexpr int kGeneral = 0;     // max(p+1, q) <= kGeneralN
+constexpr int kWide = -1;       // kGeneralN < max(p+1, q) <= kMaxN
+
+// The register extent of template order P.
+template <int P>
+__host__ __device__ constexpr int extent() {
+  return P > 0 ? P : (P == kGeneral ? kGeneralN : kMaxN);
+}
 
 inline bool orders_ok(int p1, int q) {
   return p1 >= 2 && p1 <= kMaxN && q >= 1 && q <= kMaxN;
+}
+
+// The template orders a launch of (p+1, q) takes: fixed (P1 = Q = p+1) for
+// q = p+1 <= 5, else the general instantiation whose reach holds them.
+inline int template_orders(int p1, int q) {
+  if (q == p1 && p1 >= 2 && p1 <= 5) return p1;
+  return (p1 > q ? p1 : q) <= kGeneralN ? kGeneral : kWide;
 }
 
 // Whether template orders (P1, Q) keep an element inside one warp.
@@ -78,6 +101,17 @@ inline size_t smem_bytes(size_t value_bytes, int p1, int q, int epb) {
   const int n = p1 > q ? p1 : q;
   return value_bytes *
          (size_t)(2 * q * p1 + q * q * q + epb * kBufs * p1 * n * n);
+}
+
+// Allow `kernel` the dynamic shared memory `bytes` (above the default 48 KB
+// only after this call: one double element at p+1 = q = 11 takes 65,824
+// bytes); returns the CUDA error.
+template <typename Kernel>
+inline cudaError_t launch_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 // An E-vector [ne, L] (L = (p+1)^3) as a loader or a storer of
@@ -192,8 +226,8 @@ __device__ __forceinline__ void apply_elements(
     const T* __restrict__ bmat, const T* __restrict__ dmat, const Load& load,
     const Store& store) {
   constexpr bool kWarp = warp_resident<P1, Q>();
-  constexpr int MP = P1 > 0 ? P1 : kMaxN;    // register extents
-  constexpr int MQ = Q > 0 ? Q : kMaxN;
+  constexpr int MP = extent<P1>();             // register extents
+  constexpr int MQ = extent<Q>();
   const int p1 = P1 > 0 ? P1 : p1_;
   const int q = Q > 0 ? Q : q_;
   const int n = p1 > q ? p1 : q;
@@ -214,7 +248,8 @@ __device__ __forceinline__ void apply_elements(
     const int tpe = ((nc + 31) / 32) * 32;
     el = tid / tpe;
     c = tid - el * tpe;
-    active = c < nc;
+    // at n = 9 a block holds one element of 96 threads: the last warp idles
+    active = c < nc && el < kThreads / tpe;
   }
   const long long e =
       (long long)blockIdx.x * elems_per_block(kWarp, p1, q) + el;

@@ -231,16 +231,18 @@ int launch_orders(const T* x, const T* p0, const T* c6, const T* w3,
       affine::warp_resident<P1, Q>(), p1, q);
   const long long ne = (long long)lat.ndev * lat.nex * lat.ney * lat.nez;
   const unsigned blocks = (unsigned)((ne + epb - 1) / epb);
-  lattice_affine_kernel<T, P1, Q>
-      <<<blocks, affine::kThreads,
-         affine::smem_bytes(sizeof(T), p1, q, epb), st>>>(
-          x, p0, c6, w3, bmat, dmat, ye, lat, q);
-  const cudaError_t err = cudaGetLastError();
+  const size_t smem = affine::smem_bytes(sizeof(T), p1, q, epb);
+  cudaError_t err = affine::launch_smem(lattice_affine_kernel<T, P1, Q>, smem);
+  if (err != cudaSuccess) return (int)err;
+  lattice_affine_kernel<T, P1, Q><<<blocks, affine::kThreads, smem, st>>>(
+      x, p0, c6, w3, bmat, dmat, ye, lat, q);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nbx = (lat.Dx + kFoldThreads - 1) / kFoldThreads;
   const dim3 grid(nbx * lat.Dy, lat.Dz < 65535 ? lat.Dz : 65535, lat.ndev);
-  lattice_affine_fold<T, P1><<<grid, kFoldThreads, 0, st>>>(ye, x, p0, y,
-                                                             yhalo, lat, nbx);
+  // the fold is the same code for both general instantiations
+  lattice_affine_fold<T, (P1 > 0 ? P1 : 0)>
+      <<<grid, kFoldThreads, 0, st>>>(ye, x, p0, y, yhalo, lat, nbx);
   return (int)cudaGetLastError();
 }
 
@@ -277,15 +279,17 @@ int launch(const void* x, const void* p0, const void* c6, const void* w3,
 
   // (a) the elements, then (b) the fold: the orders the port's paths run
   // (p = 1..4, q = p+1) are compiled fixed; every other (p+1, q) takes the
-  // general instantiation
+  // general instantiation that reaches it (affine::template_orders)
 #define LPFEM_LAT_LAUNCH(A, B)                                                \
   launch_orders<T, A, B>(xx, pp, cc, ww, bb, dd, ee, yy, hh, lat, q, st)
-  switch (q == p + 1 ? q : 0) {
+  switch (affine::template_orders(p + 1, q)) {
     case 2: return LPFEM_LAT_LAUNCH(2, 2);
     case 3: return LPFEM_LAT_LAUNCH(3, 3);
     case 4: return LPFEM_LAT_LAUNCH(4, 4);
     case 5: return LPFEM_LAT_LAUNCH(5, 5);
-    default: return LPFEM_LAT_LAUNCH(0, 0);
+    case affine::kGeneral:
+      return LPFEM_LAT_LAUNCH(affine::kGeneral, affine::kGeneral);
+    default: return LPFEM_LAT_LAUNCH(affine::kWide, affine::kWide);
   }
 #undef LPFEM_LAT_LAUNCH
 }

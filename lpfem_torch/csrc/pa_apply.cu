@@ -36,8 +36,8 @@
 // 67 TFLOP/s, which an exact CUDA-core kernel cannot reach.
 //
 // Design against that. Both run the column body of affine_body.cuh: orders
-// fixed at compile time (p = 1..4 with q = p+1, a general instantiation for
-// the rest of 2 <= p+1 <= 8, 1 <= q <= 8), one thread per (x, y) column with
+// fixed at compile time (p = 1..4 with q = p+1, two general instantiations
+// for the rest of 2 <= p+1 <= 11, 1 <= q <= 11), one thread per (x, y) column with
 // z in registers, elements packed inside a warp with __syncwarp only; u and
 // ye are read and written once, coalesced. B3a's metric is C6[e], a
 // broadcast, times w3 in shared memory; B3b's is the full-metric policy,
@@ -96,10 +96,11 @@ int launch_element(const T* u, const T* g6, const T* bmat, const T* dmat,
   const int epb = affine::elems_per_block(
       affine::warp_resident<P1, Q>(), p1, q);
   const unsigned blocks = (unsigned)((ne + epb - 1) / epb);
-  pa_element_kernel<T, P1, Q>
-      <<<blocks, affine::kThreads,
-         affine::smem_bytes(sizeof(T), p1, q, epb), st>>>(
-          u, g6, bmat, dmat, y, ne, p1, q);
+  const size_t smem = affine::smem_bytes(sizeof(T), p1, q, epb);
+  const cudaError_t err = affine::launch_smem(pa_element_kernel<T, P1, Q>, smem);
+  if (err != cudaSuccess) return (int)err;
+  pa_element_kernel<T, P1, Q><<<blocks, affine::kThreads, smem, st>>>(
+      u, g6, bmat, dmat, y, ne, p1, q);
   return (int)cudaGetLastError();
 }
 
@@ -110,15 +111,17 @@ int launch_affine(const T* u, const T* c6, const T* w3, const T* bmat,
   const int epb = affine::elems_per_block(
       affine::warp_resident<P1, Q>(), p1, q);
   const unsigned blocks = (unsigned)((ne + epb - 1) / epb);
-  pa_affine_kernel<T, P1, Q>
-      <<<blocks, affine::kThreads,
-         affine::smem_bytes(sizeof(T), p1, q, epb), st>>>(
-          u, c6, w3, bmat, dmat, y, ne, p1, q);
+  const size_t smem = affine::smem_bytes(sizeof(T), p1, q, epb);
+  const cudaError_t err = affine::launch_smem(pa_affine_kernel<T, P1, Q>, smem);
+  if (err != cudaSuccess) return (int)err;
+  pa_affine_kernel<T, P1, Q><<<blocks, affine::kThreads, smem, st>>>(
+      u, c6, w3, bmat, dmat, y, ne, p1, q);
   return (int)cudaGetLastError();
 }
 
 // The orders the port's paths run (p = 1..4, q = p+1) are compiled fixed;
-// every other (p+1, q) takes the general instantiation.
+// every other (p+1, q) takes the general instantiation that reaches it
+// (affine::template_orders).
 template <typename T>
 int dispatch_element(const void* u, const void* g6, const void* bmat,
                      const void* dmat, void* y, int ne, int p1, int q,
@@ -131,12 +134,14 @@ int dispatch_element(const void* u, const void* g6, const void* bmat,
   const T* dd = static_cast<const T*>(dmat);
   T* yy = static_cast<T*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (q == p1 ? p1 : 0) {
+  switch (affine::template_orders(p1, q)) {
     case 2: return launch_element<T, 2, 2>(uu, gg, bb, dd, yy, ne, p1, q, st);
     case 3: return launch_element<T, 3, 3>(uu, gg, bb, dd, yy, ne, p1, q, st);
     case 4: return launch_element<T, 4, 4>(uu, gg, bb, dd, yy, ne, p1, q, st);
     case 5: return launch_element<T, 5, 5>(uu, gg, bb, dd, yy, ne, p1, q, st);
-    default: return launch_element<T, 0, 0>(uu, gg, bb, dd, yy, ne, p1, q, st);
+    case affine::kGeneral:
+      return launch_element<T, affine::kGeneral, affine::kGeneral>(uu, gg, bb, dd, yy, ne, p1, q, st);
+    default: return launch_element<T, affine::kWide, affine::kWide>(uu, gg, bb, dd, yy, ne, p1, q, st);
   }
 }
 
@@ -153,12 +158,14 @@ int dispatch_affine(const void* u, const void* c6, const void* w3,
   const T* dd = static_cast<const T*>(dmat);
   T* yy = static_cast<T*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (q == p1 ? p1 : 0) {
+  switch (affine::template_orders(p1, q)) {
     case 2: return launch_affine<T, 2, 2>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
     case 3: return launch_affine<T, 3, 3>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
     case 4: return launch_affine<T, 4, 4>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
     case 5: return launch_affine<T, 5, 5>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
-    default: return launch_affine<T, 0, 0>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
+    case affine::kGeneral:
+      return launch_affine<T, affine::kGeneral, affine::kGeneral>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
+    default: return launch_affine<T, affine::kWide, affine::kWide>(uu, cc, ww, bb, dd, yy, ne, p1, q, st);
   }
 }
 

@@ -19,19 +19,29 @@ defaults:
   the deviation from both it and the JAX result ``data/cylinder-diffraction.
   txt`` (interpolated in theta).
 
+``--gmsh file`` runs on an imported Gmsh v2.2 mesh instead (the
+reference's ``Meshes/mesh_cylinder_half.msh``,
+``cylinder-diffraction.cpp:225``): order-``--order`` geometry by
+``SetCurvature`` with the rim (boundary attribute 3) snapped onto the
+cylinder at (``--cx``, ``--cy``) (``:259-264``); the topological numbering
+and B3b carry it. ``--apply-mode`` picks the operator's apply mode
+(``pallas`` | ``fused`` | ``sumfact``). The ParaView snapshot of the
+envelope and the final eta goes to ``ParaView/cylinder_envelope.vtu``
+beside ``--out`` (``cylinder-diffraction.cpp:729-743``).
+
 ``--shard n`` runs the time loop through :class:`~lpfem_torch.shard.
 ShardedProblem` over n shards (the reference runs this study under MPI):
 on this tank (one element layer) the partition is compact x-slabs by
 element centroid, and each shard's curved elements go through B3b.
 
-Not ported here: ``--gmsh`` (A8), the VTU snapshot (A11) and ``--chunk``
-(a TPU watchdog workaround).
+Not ported: ``--chunk`` (a TPU watchdog workaround).
 
 Usage (from the root of a checkout, on a machine with a CUDA GPU):
   python -m lpfem_torch.experiments.diffraction
   python -m lpfem_torch.experiments.diffraction --dtype mixed
   python -m lpfem_torch.experiments.diffraction --quick --device cpu
   python -m lpfem_torch.experiments.diffraction --quick --shard 4 --device cpu
+  python -m lpfem_torch.experiments.diffraction --gmsh tank.msh --cy 0
 """
 
 from __future__ import annotations
@@ -48,11 +58,13 @@ import torch
 from ..analytic import mccamy_fuchs_envelope
 from ..configs import Config
 from ..cylmesh import make_half_cylinder_tank
+from ..io import write_vtu_surface
+from ..mesh import cylinder_projector, load_gmsh, set_curvature
 from ..problem import Problem
 from ..surface import RelaxationZones, cabs_weight, cgen_weight
 
-__all__ = ["extract_rim", "study_mesh", "build_problem", "rim_envelope",
-           "compare_envelopes"]
+__all__ = ["extract_rim", "study_mesh", "gmsh_mesh", "build_problem",
+           "envelope", "compare_envelopes"]
 
 
 def extract_rim(X, cx, cy, radius, tol, values):
@@ -89,6 +101,16 @@ def study_mesh(*, order: int = 4, n_theta: int = 96, n_r: int = 16,
                                    dr_max=dr_max or None)
 
 
+def gmsh_mesh(path: str, *, order: int = 4, cx: float = 4.0,
+              cy: float = 0.0, radius: float = 0.5):
+    """An imported Gmsh tank with order-``order`` geometry, its rim
+    (attribute 3) snapped onto the cylinder (``experiments/diffraction.py:
+    148-154``)."""
+    mesh = load_gmsh(path)
+    set_curvature(mesh, order, {3: cylinder_projector(cx, cy, radius)})
+    return mesh
+
+
 def build_problem(device, *, order: int = 4, nsteps: int = 525,
                   periods: float = 15.0, n_theta: int = 96, n_r: int = 16,
                   dr_max: float = 0.25, nz: int = 1, Lx: float = 12.0,
@@ -96,11 +118,12 @@ def build_problem(device, *, order: int = 4, nsteps: int = 525,
                   H: float = 0.01, precond: str = "pmg",
                   cheb_degree: int = 3, lateral: str = "incident",
                   dtype: str = "float64", rtol_sq: float | None = None,
-                  lmax=None, mesh=None) -> Problem:
+                  apply_mode: str = "pallas", lmax=None,
+                  mesh=None) -> Problem:
     """The study's :class:`Problem` with its three relaxation zones
-    (``experiments/diffraction.py:147-189``). ``mesh``: the tank built
-    once by :func:`study_mesh` with the same arguments (reused, not
-    changed)."""
+    (``experiments/diffraction.py:147-189``). ``mesh``: the tank, built
+    once by :func:`study_mesh` with the same arguments or imported by
+    :func:`gmsh_mesh` (reused, not changed)."""
     if mesh is None:
         mesh = study_mesh(order=order, n_theta=n_theta, n_r=n_r,
                           dr_max=dr_max, nz=nz, Lx=Lx, Ly=Ly, cx=cx,
@@ -114,7 +137,8 @@ def build_problem(device, *, order: int = 4, nsteps: int = 525,
                  wave_by="wavelength", wave_lambda=1.0, kh_override=1.0,
                  nsteps=nsteps, t_final_periods=periods,
                  cg_rtol_sq=rtol_sq, cg_atol_sq=atol_sq, cg_max_iter=600,
-                 dtype=dtype, precond=precond, cheb_degree=cheb_degree)
+                 dtype=dtype, apply_mode=apply_mode, precond=precond,
+                 cheb_degree=cheb_degree)
     prob = Problem(cfg, device=device, mesh=mesh, lmax=lmax)
     lam = prob.wave.wavelength
     bbmin, bbmax = mesh.bounding_box()
@@ -137,13 +161,12 @@ def build_problem(device, *, order: int = 4, nsteps: int = 525,
     return prob
 
 
-def rim_envelope(prob: Problem, ts, etas, t_end: float, cx: float,
-                 cy: float, radius: float, rim_tol: float):
-    """(theta, envelope): nodal max of eta over the last period times 2/H
-    (``cylinder-diffraction.cpp:415-429``) on the rim nodes."""
+def envelope(prob: Problem, ts, etas, t_end: float) -> np.ndarray:
+    """The nodal max of eta over the last period times 2/H at every
+    surface dof (``cylinder-diffraction.cpp:415-429``)."""
     sel = np.asarray(ts) >= t_end - prob.wave.T - 1e-12
-    env = np.max(np.asarray(etas)[sel], axis=0) * (2.0 / prob.cfg.H)
-    return extract_rim(prob.surf.node_coords, cx, cy, radius, rim_tol, env)
+    return np.max(np.asarray(etas)[sel], axis=0) * (2.0 / prob.cfg.H)
+
 
 
 def compare_envelopes(th, vals, ka: float, jax_table=None) -> dict:
@@ -201,12 +224,19 @@ def main(argv=None) -> dict:
                     help="cap on radial layer width in wavelengths; 0 "
                          "disables (pure geometric grading)")
     ap.add_argument("--nz", type=int, default=1)
+    ap.add_argument("--gmsh", default=None,
+                    help="load a Gmsh v2.2 mesh instead")
     ap.add_argument("--Lx", type=float, default=12.0)
     ap.add_argument("--Ly", type=float, default=6.0)
     ap.add_argument("--cx", type=float, default=4.0)
+    ap.add_argument("--cy", type=float, default=0.0,
+                    help="cylinder centre y (4.0 for the reference's half "
+                         "mesh)")
     ap.add_argument("--radius", type=float, default=0.5)
     ap.add_argument("--H", type=float, default=0.01)
     ap.add_argument("--precond", default="pmg")
+    ap.add_argument("--apply-mode", default="pallas",
+                    choices=["pallas", "fused", "sumfact"])
     ap.add_argument("--cheb-degree", type=int, default=3)
     ap.add_argument("--rim-tol", type=float, default=1e-9,
                     help="|r-a| tolerance of the rim-node extraction")
@@ -245,13 +275,16 @@ def main(argv=None) -> dict:
                               check=True).stdout.strip()
         print(card)
     t_setup = time.perf_counter()
+    mesh = (gmsh_mesh(args.gmsh, order=args.order, cx=args.cx, cy=args.cy,
+                      radius=args.radius) if args.gmsh else None)
     prob = build_problem(device, order=args.order, nsteps=args.nsteps,
                          periods=args.periods, n_theta=args.n_theta,
                          n_r=args.n_r, dr_max=args.dr_max, nz=args.nz,
                          Lx=args.Lx, Ly=args.Ly, cx=args.cx,
                          radius=args.radius, H=args.H, precond=args.precond,
                          cheb_degree=args.cheb_degree, lateral=args.lateral,
-                         dtype=args.dtype, rtol_sq=args.rtol_sq)
+                         dtype=args.dtype, rtol_sq=args.rtol_sq,
+                         apply_mode=args.apply_mode, mesh=mesh)
     runner = prob
     if args.shard:
         from ..shard import ShardedProblem
@@ -289,10 +322,17 @@ def main(argv=None) -> dict:
           f"pa_apply_element launches, unconverged={stats.unconverged}")
 
     etas_np = torch.stack(etas).cpu().numpy()
-    th, vals = rim_envelope(prob, ts, etas_np, t, args.cx, 0.0, args.radius,
-                            args.rim_tol)
+    env = envelope(prob, ts, etas_np, t)
+    th, vals = extract_rim(prob.surf.node_coords, args.cx, args.cy,
+                           args.radius, args.rim_tol, env)
     _write_table(args.out, "theta(rad) eta", zip(th, vals))
     print(f"extracted {len(th)} rim points -> {args.out}")
+    # the ParaView snapshot (cylinder-diffraction.cpp:729-743), beside --out
+    pv_dir = os.path.join(os.path.dirname(args.out) or ".", "ParaView")
+    os.makedirs(pv_dir, exist_ok=True)
+    vtu = os.path.join(pv_dir, "cylinder_envelope.vtu")
+    write_vtu_surface(vtu, prob.surf, {"eta_env": env, "eta_final": y[:ns]})
+    print(f"wrote {vtu}")
 
     ka = wave.k * args.radius
     th_e = np.linspace(0, np.pi, 181)
@@ -314,9 +354,12 @@ def main(argv=None) -> dict:
     result = dict(
         device=(torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu"), nvidia_smi=card,
-        dtype=args.dtype, shards=args.shard, dofs=prob.space.n_dofs,
+        dtype=args.dtype, shards=args.shard, gmsh=args.gmsh,
+        apply_mode=args.apply_mode, envelope_vtu=vtu,
+        dofs=prob.space.n_dofs,
         surface_dofs=ns,
         hexes=prob.space.mesh.n_elems, steps=len(ts), t_final=t,
+        max_abs_eta=float(y[:ns].abs().max()),
         setup_s=setup_s, wall_s=wall, n_solves=stats.n_solves,
         total_inner_iters=stats.total_iters, max_iters=stats.max_iters,
         syncs=stats.syncs, unconverged=stats.unconverged,

@@ -5,9 +5,10 @@ driver, preset-selected, with ParaView output every N steps
 (``Solvers/PF_linear_par_partial.cpp:492-515``), progress every 10 steps
 (``Solvers/PF_linear_par.cpp:481-484``), the wave-parameter banner
 (``Solvers/PF_linear_serial.cpp:329-336``), and checkpoint / resume
-(``lpfem_torch.io``). GLVis streaming (``--glvis-every``) is not ported.
-ParaView output goes to ``chiprun_out/ParaView`` unless ``--paraview-dir``
-says otherwise.
+(``lpfem_torch.io``), and eta streamed to a running GLVis server every N
+steps (``--glvis-every``, ``Solvers/PF_linear_serial.cpp:438-487``; with no
+server listening it warns once and runs on). ParaView output goes to
+``chiprun_out/ParaView`` unless ``--paraview-dir`` says otherwise.
 
     python -m lpfem_torch.experiments.pf_run --preset pf_linear_periodic
     python -m lpfem_torch.experiments.pf_run --preset pf_linear_par_partial \\
@@ -35,6 +36,11 @@ def main(argv=None):
                     help="zero ICs (relaxation zones build the wave)")
     ap.add_argument("--paraview-every", type=int, default=0)
     ap.add_argument("--paraview-dir", default="chiprun_out/ParaView")
+    ap.add_argument("--glvis-every", type=int, default=0,
+                    help="stream eta to a running GLVis server every N steps "
+                         "(Solvers/PF_linear_serial.cpp:438-487)")
+    ap.add_argument("--glvis-host", default="localhost")
+    ap.add_argument("--glvis-port", type=int, default=19916)
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--resume", default=None)
@@ -46,6 +52,7 @@ def main(argv=None):
 
     from ..configs import preset
     from ..ds import DS, ds_to_f64
+    from ..glvis import GLVisStream
     from ..io import (ParaViewCollection, load_checkpoint, save_checkpoint,
                       write_vtu, write_vtu_surface)
     from ..problem import Problem
@@ -89,10 +96,14 @@ def main(argv=None):
     if args.paraview_every:
         pv_vol = ParaViewCollection(args.paraview_dir, cfg.name + "_vol")
         pv_fs = ParaViewCollection(args.paraview_dir, cfg.name + "_fs")
+    glvis = (GLVisStream(args.glvis_host, args.glvis_port)
+             if args.glvis_every else None)
+    keys_sent = False
 
     ns = prob.surf.n_dofs
     t_wall0 = time.perf_counter()
-    chunk = args.paraview_every or args.checkpoint_every or cfg.nsteps
+    chunk = (args.paraview_every or args.glvis_every or args.checkpoint_every
+             or cfg.nsteps)
     step = step0
     while step < cfg.nsteps:
         n = min(chunk, cfg.nsteps - step)
@@ -108,6 +119,11 @@ def main(argv=None):
             pv_vol.save(step, t, write_vtu, prob.space, {"phi": phi_out})
             pv_fs.save(step, t, write_vtu_surface, prob.surf,
                        {"eta": y[:ns], "phi_fs": y[ns:]})
+        if glvis is not None and step % args.glvis_every < n:
+            # the view keys ride this process's first send (a resumed run
+            # starts past step 0)
+            glvis.send(prob.surf, y[:ns], keys=None if keys_sent else "Rjlc")
+            keys_sent = True
         if args.checkpoint and step % args.checkpoint_every < n:
             save_checkpoint(args.checkpoint, step=step, t=t, y=y, phi=phi,
                             config=cfg.name)
@@ -118,6 +134,8 @@ def main(argv=None):
     if args.checkpoint:
         save_checkpoint(args.checkpoint, step=step, t=t, y=y, phi=phi,
                         config=cfg.name)
+    if glvis is not None:
+        glvis.close()
     return t, y, phi
 
 

@@ -11,9 +11,10 @@ A NumPy copy of ``lpfem.io`` (``lpfem/io.py``), the same text byte for byte:
 - checkpoint / resume of ``[eta; phi_fs]``, the volume-potential warm start,
   the step index and the time.
 
-Only lpfem's ASCII writer is ported: its native binary-appended writer
-(``lpfem/io.py:116``, through ``lpfem.native``) waits for the native
-library's port (ROADMAP A4), and with it lpfem's ``binary`` switch. Fields
+The VTU writers take lpfem's ``binary`` switch (``lpfem/io.py:111-135``):
+``binary=True`` (the default) writes VTK's appended raw encoding through the
+native library (:func:`lpfem_torch.native.write_vtu_binary`, the same
+bytes as lpfem's native writer), ``binary=False`` the ASCII text. Fields
 may be NumPy arrays or tensors on any device.
 """
 
@@ -121,27 +122,34 @@ def surface_cells(surf) -> tuple[np.ndarray, np.ndarray]:
     return pts, conn
 
 
-def _write(path: str, pts, conn, cell_type: int, pdata) -> None:
+def _write(path: str, pts, conn, cell_type: int, pdata,
+           binary: bool) -> None:
+    """The binary-appended file through the native writer, or ASCII."""
+    if binary:
+        from .native import write_vtu_binary
+        write_vtu_binary(path, pts, conn, cell_type, pdata)
+        return
     with open(path, "w") as f:
         f.write(_vtu_xml(pts, conn, cell_type, pdata))
 
 
-def write_vtu(path: str, space, fields: dict) -> None:
-    """High-order volume output (ASCII): per-element GLL lattice points, p^3
+def write_vtu(path: str, space, fields: dict, binary: bool = True) -> None:
+    """High-order volume output: per-element GLL lattice points, p^3
     linear sub-hexes per element. ``fields`` maps name -> dof vector
     [n_dofs]."""
     pts, conn = volume_cells(space)
     pdata = {name: _host(v)[space.elem_dofs].reshape(-1)
              for name, v in fields.items()}
-    _write(path, pts, conn, 12, pdata)
+    _write(path, pts, conn, 12, pdata, binary)
 
 
-def write_vtu_surface(path: str, surf, fields: dict) -> None:
-    """Surface (quad) output (ASCII) on the free-surface trace space."""
+def write_vtu_surface(path: str, surf, fields: dict,
+                      binary: bool = True) -> None:
+    """Surface (quad) output on the free-surface trace space."""
     pts, conn = surface_cells(surf)
     pdata = {name: _host(v)[surf.elem_dofs].reshape(-1)
              for name, v in fields.items()}
-    _write(path, pts, conn, 9, pdata)
+    _write(path, pts, conn, 9, pdata, binary)
 
 
 class ParaViewCollection:

@@ -1,11 +1,15 @@
-"""Build and load the package's CUDA sources (nvcc + ctypes, no PyTorch headers).
+"""Build and load the package's native sources (plain C interfaces, ctypes,
+no PyTorch headers).
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
-use into ``build/lpfem_torch/lib<name>-<source hash>.so`` under the checkout
-root (``.gitignore`` lists ``build/``), then loaded with ``ctypes``. The hash
+Each ``csrc/<name>.cu`` is compiled by nvcc on first use into
+``build/lpfem_torch/lib<name>-<source hash>.so`` under the checkout root
+(``.gitignore`` lists ``build/``), then loaded with ``ctypes``. The hash
 names the library after its source and the headers (``csrc/*.cuh``) beside
 it, so an edited kernel is rebuilt and a stale library is never loaded.
-Nothing here runs at import time.
+Host C++ libraries (``csrc/*.cpp``, the native dof numbering and I/O of
+``lpfem_torch.native``) go the same way through g++
+(:func:`load_host_library`): same directory, same hash naming, and a
+missing compiler or a failed build raises. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,13 +21,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "build_libraries", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["load_library", "build_libraries", "load_host_library",
+           "BUILD_DIR", "CSRC_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lpfem_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -80,5 +86,37 @@ def load_library(name: str) -> ctypes.CDLL:
         return _loaded[name]
     build_libraries([name])
     lib = ctypes.CDLL(str(_lib_path(name)))
+    _loaded[name] = lib
+    return lib
+
+
+def load_host_library(name: str, sources) -> ctypes.CDLL:
+    """Compile the host C++ ``sources`` (names under ``csrc/``) with g++
+    into ``build/lpfem_torch/lib<name>-<hash>.so`` if it is missing, then
+    load it (once per process). Raises if g++ is missing or the build
+    fails: the callers have no second implementation to switch to."""
+    if name in _loaded:
+        return _loaded[name]
+    srcs = [CSRC_DIR / s for s in sources]
+    h = hashlib.sha256()
+    for src in srcs:
+        h.update(src.read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    lib_path = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if not lib_path.exists():
+        gxx = os.environ.get("CXX") or shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found (set CXX): lib{name} is built "
+                               "from csrc/ at first use")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([gxx, *GXX_FLAGS, *map(str, srcs), "-o",
+                               str(tmp)], capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for lib{name}:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
     _loaded[name] = lib
     return lib

@@ -10,7 +10,7 @@ the Gauss points, from which ``Jr2 = [B(x)B(x)D; B(x)D(x)B; D(x)B(x)B]``
 forms, each a TPU kernel of ``lpfem/kernels/pa_apply.py`` and here a kernel
 of one CUDA source, ``csrc/pa_apply.cu`` (sum-factorised on the column body
 of ``csrc/affine_body.cuh``, with the metric as its policy and the orders
-fixed at compile time for p = 1..4, q = p+1):
+fixed at compile time for p = 1..4, q = p+1; p+1, q <= 11 in all):
 
 - full, on curved elements: ``G6q [ne, 6Q]`` in component-major layout
   ``(xx, xy, xz, yy, yz, zz)`` (``lpfem/operators.py:544-545``) —
@@ -48,7 +48,7 @@ LAUNCHES_BY_P: dict[int, int] = {}          # the same by element order p
 LAUNCHES_AFFINE = 0   # kernel launches through pa_apply_affine (B3a)
 LAUNCHES_AFFINE_BY_P: dict[int, int] = {}   # the same by element order p
 
-_MAX_P1 = 8           # the column body's reach (csrc/affine_body.cuh kMaxN)
+_MAX_P1 = 11          # the column body's reach (csrc/affine_body.cuh kMaxN)
 
 
 def grad_interp(B: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
@@ -63,11 +63,13 @@ def grad_interp(B: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
 
 
 def pa_apply_element_reference(u: torch.Tensor, G6q: torch.Tensor,
-                               B: torch.Tensor, D: torch.Tensor
+                               B: torch.Tensor, D: torch.Tensor,
+                               Jr2: torch.Tensor | None = None
                                ) -> torch.Tensor:
-    """Plain PyTorch ``ye = Jr2^T (G6 o (Jr2 u))``, as lpfem's fused mode."""
+    """Plain PyTorch ``ye = Jr2^T (G6 o (Jr2 u))``, as lpfem's fused mode
+    (``Jr2``: :func:`grad_interp` of ``B``, ``D``, formed when not given)."""
     Q = B.shape[0] ** 3
-    Jr2 = grad_interp(B, D)
+    Jr2 = grad_interp(B, D) if Jr2 is None else Jr2
     g = u @ Jr2.T                                       # [ne, 3Q]
     gx, gy, gz = g[:, :Q], g[:, Q:2 * Q], g[:, 2 * Q:]
     Gxx, Gxy, Gxz = G6q[:, :Q], G6q[:, Q:2 * Q], G6q[:, 2 * Q:3 * Q]
@@ -113,11 +115,13 @@ def pa_apply_element_mirror(u: torch.Tensor, G6q: torch.Tensor,
 
 def pa_apply_affine_reference(u: torch.Tensor, C6: torch.Tensor,
                               w3: torch.Tensor, B: torch.Tensor,
-                              D: torch.Tensor) -> torch.Tensor:
+                              D: torch.Tensor,
+                              Jr2: torch.Tensor | None = None
+                              ) -> torch.Tensor:
     """Plain PyTorch ``ye = Jr2^T (w3 C6 (Jr2 u))``, as lpfem's fused mode
     with the compact metric (``_apply_G6_affine``)."""
     Q = B.shape[0] ** 3
-    Jr2 = grad_interp(B, D)
+    Jr2 = grad_interp(B, D) if Jr2 is None else Jr2
     g = u @ Jr2.T                                       # [ne, 3Q]
     gx, gy, gz = g[:, :Q], g[:, Q:2 * Q], g[:, 2 * Q:]
     cx, cxy, cxz, cy, cyz, cz = (C6[:, i:i + 1] for i in range(6))

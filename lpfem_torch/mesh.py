@@ -4,8 +4,12 @@ Counterpart of ``lpfem.mesh``: the ``Mesh`` record with ``uniform_refine``
 (MFEM ``UniformRefinement``), the Cartesian generators (``MakeCartesian3D``,
 ``MakePeriodic`` with its vertex identification, the tank boundary marking of
 ``Meshes/wave_tank.cpp``) and the MFEM v1.0 mesh-file writer and parser,
-including the per-element L2 nodes section periodic meshes carry. Not here:
-the Gmsh parser, ``set_curvature`` and ``cylinder_projector`` (ROADMAP A8).
+including the per-element L2 nodes section periodic meshes carry; the Gmsh
+v2.2 reader (``load_gmsh``, through the native scanner of
+``lpfem_torch.native``, with the Python parser kept as
+``parse_gmsh_python``), a v2.2 writer for linear meshes (``save_gmsh``), and
+MFEM's ``SetCurvature`` with lpfem's boundary snap (``set_curvature``,
+``cylinder_projector``).
 
 Geometry's source of truth is ``corner_coords [n_elem, 8, 3]`` (per element,
 *unwrapped*, which is what makes periodic meshes work); topology is
@@ -33,6 +37,11 @@ __all__ = [
     "make_wave_tank_finite",
     "save_mfem",
     "load_mfem",
+    "save_gmsh",
+    "load_gmsh",
+    "parse_gmsh_python",
+    "cylinder_projector",
+    "set_curvature",
     "HEX_VERTS",
     "HEX_EDGES",
     "HEX_FACES",
@@ -546,3 +555,161 @@ def _parse_mfem(tok) -> Mesh:
         verts = np.zeros((nv, 3))
         verts[:, :vdim] = vals.reshape(nv, vdim)
         return Mesh(verts, elems, verts[elems], bq, ba, periodic=False)
+
+
+# ---------------------------------------------------------------------- Gmsh
+
+def save_gmsh(mesh: Mesh, path: str) -> None:
+    """Write the linear hexes of ``mesh`` and its boundary quads as a Gmsh
+    v2.2 ASCII file (node ids from 1; hexes as element type 5, quads as
+    type 3 with the boundary attribute as physical and elementary tag), the
+    subset :func:`load_gmsh` reads. The topological vertices are written,
+    so a periodic mesh loses its identification."""
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n")
+        f.write(f"$Nodes\n{mesh.n_verts}\n")
+        for v in range(mesh.n_verts):
+            f.write(f"{v + 1} " + " ".join(f"{c:.17g}" for c in mesh.verts[v])
+                    + "\n")
+        f.write("$EndNodes\n")
+        nb = len(mesh.bdr_quads)
+        f.write(f"$Elements\n{nb + mesh.n_elems}\n")
+        for b in range(nb):
+            a = int(mesh.bdr_attrs[b])
+            f.write(f"{b + 1} 3 2 {a} {a} "
+                    + " ".join(str(v + 1) for v in mesh.bdr_quads[b]) + "\n")
+        for e in range(mesh.n_elems):
+            f.write(f"{nb + e + 1} 5 2 1 1 "
+                    + " ".join(str(v + 1) for v in mesh.elems[e]) + "\n")
+        f.write("$EndElements\n")
+
+
+def parse_gmsh_python(path: str):
+    """The Python Gmsh v2.2 parser (``lpfem/mesh.py:556-593``): ``(verts
+    [nn, 3], hexes [nh, 8], quads [nq, 4], qtags [nq])``, node ids remapped
+    to 0..nn-1 in ascending id order, each quad's first tag (its physical
+    group) as its attribute. The native scanner
+    (``lpfem_torch.native.parse_gmsh``) computes the same."""
+    with open(path) as f:
+        lines = f.read().split("\n")
+    i = 0
+    nodes = {}
+    elems, bq, ba = [], [], []
+    while i < len(lines):
+        line = lines[i].strip()
+        if line == "$Nodes":
+            n = int(lines[i + 1])
+            for j in range(n):
+                parts = lines[i + 2 + j].split()
+                nodes[int(parts[0])] = [float(parts[1]), float(parts[2]),
+                                        float(parts[3])]
+            i += 2 + n
+        elif line == "$Elements":
+            n = int(lines[i + 1])
+            for j in range(n):
+                parts = [int(x) for x in lines[i + 2 + j].split()]
+                etype, ntags = parts[1], parts[2]
+                phys = parts[3] if ntags >= 1 else 0
+                conn = parts[3 + ntags:]
+                if etype == 5:          # 8-node hex (Gmsh order = MFEM's)
+                    elems.append(conn)
+                elif etype == 3:        # 4-node quad
+                    bq.append(conn)
+                    ba.append(phys)
+            i += 2 + n
+        else:
+            i += 1
+    node_ids = sorted(nodes)
+    remap = {nid: k for k, nid in enumerate(node_ids)}
+    verts = np.array([nodes[nid] for nid in node_ids])
+    hexes = np.array([[remap[v] for v in e] for e in elems], dtype=np.int64)
+    quads = (np.array([[remap[v] for v in q] for q in bq], dtype=np.int64)
+             if bq else np.zeros((0, 4), dtype=np.int64))
+    return verts, hexes, quads, np.array(ba, dtype=np.int64)
+
+
+def load_gmsh(path: str) -> Mesh:
+    """A Gmsh v2.2 ``.msh`` file with hex volume and quad boundary elements
+    (``lpfem.mesh.load_gmsh``; MFEM's reader for
+    ``Meshes/mesh_cylinder_half.msh``,
+    ``Solvers/cylinder-diffraction.cpp:225``): physical surface tags become
+    boundary attributes. Parsed by the native scanner
+    (``lpfem_torch.native.parse_gmsh``, as lpfem wherever its native
+    library is built)."""
+    from .native import parse_gmsh
+    verts, elems, bq, ba = parse_gmsh(path)
+    return Mesh(verts, elems, verts[elems], bq, ba, periodic=False)
+
+
+# face index -> (lattice axis normal to the face, side in {0, 1}); the order
+# of HEX_FACES
+_FACE_AXIS = ((2, 0), (1, 0), (0, 1), (1, 1), (0, 0), (2, 1))
+
+
+def cylinder_projector(cx: float, cy: float, a: float):
+    """Projection onto the vertical cylinder of radius ``a`` at (cx, cy)
+    (``lpfem/mesh.py:601-611``)."""
+
+    def proj(x: np.ndarray) -> np.ndarray:
+        d = x[:, :2] - np.array([cx, cy])
+        r = np.maximum(np.hypot(d[:, 0], d[:, 1]), 1e-300)
+        out = x.copy()
+        out[:, :2] = np.array([cx, cy]) + d * (a / r)[:, None]
+        return out
+
+    return proj
+
+
+def set_curvature(mesh: Mesh, pg: int,
+                  boundary_projectors: dict | None = None) -> None:
+    """MFEM ``Mesh::SetCurvature(order)`` (``lpfem/mesh.py:614-681``): give
+    ``mesh`` order-``pg`` geometry nodes interpolating its trilinear
+    geometry, which is what MFEM does to a linear Gmsh import
+    (``Solvers/cylinder-diffraction.cpp:263``: the rim stays faceted).
+
+    ``boundary_projectors`` (lpfem's addition, ``{attr: fn(xyz [n, 3]) ->
+    xyz}``) snaps the geometry nodes of the boundary faces with that
+    attribute onto the true surface, the displacement blended linearly to
+    zero at the opposite element face (:func:`cylinder_projector` makes an
+    imported faceted rim exactly circular); the displacements of several
+    projected faces of one element add up from the base geometry."""
+    gll = basis_1d(pg).nodes
+    pg1 = pg + 1
+    L = pg1 ** 3
+    W = trilinear_weights(pg)                                 # [L, 8]
+    geom = np.einsum("lk,eki->eli", W, mesh.corner_coords)   # [ne, L, 3]
+
+    if boundary_projectors:
+        # boundary quad -> (owning element, local face)
+        fq = np.sort(mesh.elems[:, HEX_FACES], axis=2)       # [ne, 6, 4]
+        dt = np.dtype([("", fq.dtype)] * 4)
+        flat = np.ascontiguousarray(fq.reshape(-1, 4)).view(dt).ravel()
+        order = np.argsort(flat, kind="stable")
+        keys = np.ascontiguousarray(np.sort(mesh.bdr_quads, axis=1)).view(
+            dt).ravel()
+        pos = np.searchsorted(flat, keys, sorter=order)
+        hit = order[np.clip(pos, 0, len(flat) - 1)]
+        if not np.all(flat[hit] == keys):
+            raise ValueError("boundary quad not found among element faces")
+        own_e, own_f = hit // 6, hit % 6
+
+        lat = np.arange(L)
+        lat3 = np.stack([lat % pg1, (lat // pg1) % pg1, lat // pg1 ** 2], 1)
+        for b, attr in enumerate(mesh.bdr_attrs):
+            projf = boundary_projectors.get(int(attr))
+            if projf is None:
+                continue
+            e, f = int(own_e[b]), int(own_f[b])
+            ax, side = _FACE_AXIS[f]
+            # each lattice node's projection onto the face
+            pinned = lat3.copy()
+            pinned[:, ax] = side * pg
+            fidx = pinned[:, 0] + pg1 * (pinned[:, 1] + pg1 * pinned[:, 2])
+            base = np.einsum("lk,ki->li", W, mesh.corner_coords[e])
+            disp = projf(base[fidx]) - base[fidx]            # [L, 3]
+            xi = gll[lat3[:, ax]]
+            wgt = xi if side == 1 else 1.0 - xi              # 1 at the face
+            geom[e] += wgt[:, None] * disp
+
+    mesh.geom_nodes = geom
+    mesh.geom_order = pg

@@ -199,8 +199,10 @@ class PMultigrid:
         orders.append(1)
         self.orders = orders
 
+        mode = fine_op.mode
         ops = [fine_op] + [laplace_operator(space.with_order(pl), dtype,
-                                            device) for pl in orders[1:]]
+                                            device, mode=mode)
+                           for pl in orders[1:]]
         self.levels = [_Level(op) for op in ops]
         self.transfers = []
         for i in range(len(orders) - 1):
@@ -223,7 +225,8 @@ class PMultigrid:
             sp_c = bot.coarsen()
             if sp_c is None:
                 break
-            self.levels.append(_Level(laplace_operator(sp_c, dtype, device)))
+            self.levels.append(_Level(laplace_operator(sp_c, dtype, device,
+                                                       mode=mode)))
             self.transfers.append(_Transfer(bot, sp_c, 1, 2, sp_c.elem_dims,
                                             dtype, device))
             self.orders = self.orders + [1]

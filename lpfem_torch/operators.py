@@ -20,6 +20,24 @@ four applies inside one class; here each is a class and
 4. :class:`ElementLaplace` with the full metric ``G6q [ne, 6Q]`` — curved
    elements: gather, ``kernels.pa_apply.pa_apply_element`` (B3b), fold.
 
+That rule is lpfem's ``apply_mode="pallas"`` (the default). The other
+modes, as lpfem's ``LaplacePA(mode=...)`` (``lpfem/operators.py:527-548,
+689-760``):
+
+- ``"fused"``: the Kronecker form on a separable grid (1., B1 on the card,
+  the function of lpfem's XLA ``sep.apply``); elsewhere
+  :class:`ElementLaplace` with lpfem's element-local form, one ``[E, L] @
+  [L, 3Q]`` product, the metric and the transposed product;
+- ``"sumfact"``: :class:`ElementLaplace` with the element-local
+  sum-factorised einsums on every mesh, separable grids included.
+
+The products of those two forms are XLA code in lpfem, outside any Pallas
+kernel, and ``torch.matmul`` / ``torch.einsum`` carry them here; they run
+only where the mode asks for them. ``"assembled"`` (lpfem's
+``PF_linear_par`` configuration) is :class:`AssembledLaplace`, a sparse
+matrix assembled from an operator's element matrices, which the solve uses
+in place of the operator.
+
 Every wrapper takes its kernel's plain version on CPU tensors. All classes
 share ``apply``, ``constrained_apply_top`` (identity rows and columns on the
 free-surface dofs ``space.top_plane_dofs()``), ``constrained_apply`` (the
@@ -34,6 +52,7 @@ at every dof.
 
 from __future__ import annotations
 
+import warnings
 from functools import cached_property
 
 import numpy as np
@@ -47,16 +66,18 @@ from .elements import basis_1d
 from .geometry import (affine_c6, geometric_factors, grad_interp_matrix,
                        quad_geometry, surface_elements, top_trace_geometry)
 from .kernels.lattice_apply import lattice_affine_apply
-from .kernels.pa_apply import pa_apply_affine, pa_apply_element
+from .kernels.pa_apply import (pa_apply_affine, pa_apply_affine_reference,
+                               pa_apply_element, pa_apply_element_reference)
 from .kernels.sep_apply import sep_apply
 from .mesh import HEX_VERTS
 from .space import LatticeSpace
 
 __all__ = ["SeparableLattice", "AffineLatticeLaplace", "ElementLaplace",
-           "NodalZDerivative", "nodal_z_derivative", "laplace_operator",
-           "separable_spacings"]
+           "AssembledLaplace", "NodalZDerivative", "nodal_z_derivative",
+           "laplace_operator", "separable_spacings", "APPLY_MODES"]
 
 BAND_NAMES = ("Kx", "Mx", "Ky", "My", "Kz", "Mz")
+APPLY_MODES = ("pallas", "fused", "sumfact")   # the operator's own modes
 
 
 def _reference_matrices(p: int, q: int | None = None):
@@ -113,7 +134,11 @@ def _strided_slice(idx: np.ndarray) -> slice | None:
 
 class _Operator(nn.Module):
     """What the operators share: the space, the device, and the
-    free-surface elimination of ``FormLinearSystem``."""
+    free-surface elimination of ``FormLinearSystem``. ``mode`` is the
+    apply mode :func:`laplace_operator` built it for (multigrid levels take
+    the fine operator's, as lpfem's)."""
+
+    mode = "pallas"
 
     def _init_common(self, space, dtype: torch.dtype, q: int | None) -> None:
         self.space = space
@@ -340,6 +365,57 @@ def _fold(ye: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 _SYM = ((0, 1, 2), (1, 3, 4), (2, 4, 5))   # G6 component of G[i][j]
 
 
+def sumfact_local(u: torch.Tensor, C6: torch.Tensor | None,
+                  w3: torch.Tensor | None, G6q: torch.Tensor | None,
+                  B: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """lpfem's sum-factorised element apply (``mode="sumfact"``,
+    ``lpfem/operators.py:715-740``): the reference gradient by 1D
+    contractions, the metric (affine ``w3[k] C6[e]``, or the full ``G6q
+    [ne, 6Q]``), and the transposed contractions. lpfem writes each
+    direction as one four-operand einsum that XLA factors; here the
+    contractions are taken one axis at a time, the x and y partials shared
+    between the three gradient components (eight contractions each way)."""
+    ne = u.shape[0]
+    q, p1 = B.shape
+    Q = q ** 3
+    uz = u.reshape(ne, p1, p1, p1)                           # [e, z, y, x]
+
+    def x(A, v):
+        return torch.einsum("ax,ezyx->ezya", A, v)
+
+    def y(A, v):
+        return torch.einsum("by,ezya->ezba", A, v)
+
+    def z(A, v):
+        return torch.einsum("cz,ezba->ecba", A, v).reshape(ne, Q)
+
+    ub, ud = x(B, uz), x(D, uz)
+    gx, gy, gz = z(B, y(B, ud)), z(B, y(D, ub)), z(D, y(B, ub))
+    if C6 is not None:
+        cx, cxy, cxz, cy, cyz, cz = (C6[:, i:i + 1] for i in range(6))
+        h = ((cx * gx + cxy * gy + cxz * gz) * w3,
+             (cxy * gx + cy * gy + cyz * gz) * w3,
+             (cxz * gx + cyz * gy + cz * gz) * w3)
+    else:
+        G = [G6q[:, i * Q:(i + 1) * Q] for i in range(6)]
+        h = (G[0] * gx + G[1] * gy + G[2] * gz,
+             G[1] * gx + G[3] * gy + G[4] * gz,
+             G[2] * gx + G[4] * gy + G[5] * gz)
+
+    def zt(A, v):
+        return torch.einsum("cz,ecba->ezba", A, v.reshape(ne, q, q, q))
+
+    def yt(A, v):
+        return torch.einsum("by,ezba->ezya", A, v)
+
+    def xt(A, v):
+        return torch.einsum("ax,ezya->ezyx", A, v)
+
+    out = (xt(D, yt(B, zt(B, h[0])))
+           + xt(B, yt(D, zt(B, h[1])) + yt(B, zt(D, h[2]))))
+    return out.reshape(ne, p1 ** 3)
+
+
 class ElementLaplace(_Operator):
     """Element-form (partial assembly) Laplace on any space:
     ``A x = scatter(apply_local(gather(x)))`` — lpfem's ``LaplacePA.apply``
@@ -360,6 +436,11 @@ class ElementLaplace(_Operator):
     column or topological): one launch in and three back, where the
     cascades would be ~20.
 
+    ``mode`` picks the element-local apply: ``"pallas"`` the CUDA kernels
+    B3a / B3b, ``"fused"`` lpfem's two dense products in plain PyTorch (the
+    kernels' plain versions), ``"sumfact"`` lpfem's sum-factorised einsums
+    (:func:`sumfact_local`).
+
     Buffers, on ``device``: the metric (computed in float64 on the host and
     rounded once to ``dtype``, as lpfem's), ``Jr2 [3Q, L]`` (gradient
     interpolation), ``B``/``D`` ``[q, p+1]`` (its 1D factors, which the
@@ -370,9 +451,13 @@ class ElementLaplace(_Operator):
     """
 
     def __init__(self, space, dtype: torch.dtype, device,
-                 q: int | None = None, C6: np.ndarray | None = None):
+                 q: int | None = None, C6: np.ndarray | None = None,
+                 mode: str = "pallas"):
         super().__init__()
+        if mode not in APPLY_MODES:
+            raise ValueError(f"unknown apply mode {mode!r}")
         self._init_common(space, dtype, q)
+        self.mode = mode
         self.dof_dims = space.dof_dims
         self.periodic = space.periodic
         p, q = self.p, self.q
@@ -426,7 +511,19 @@ class ElementLaplace(_Operator):
 
     # ------------------------------------------------------------ the applies
     def _local(self, u: torch.Tensor) -> torch.Tensor:
-        if self.C64 is not None:
+        affine = self.C64 is not None
+        if self.mode == "sumfact":
+            return sumfact_local(u, self.C6 if affine else None,
+                                 self.w3 if affine else None,
+                                 None if affine else self.G6q, self.B,
+                                 self.D)
+        if self.mode == "fused":
+            if affine:
+                return pa_apply_affine_reference(u, self.C6, self.w3, self.B,
+                                                 self.D, self.Jr2)
+            return pa_apply_element_reference(u, self.G6q, self.B, self.D,
+                                              self.Jr2)
+        if affine:
             return pa_apply_affine(u, self.C6, self.w3, self.B, self.D)
         return pa_apply_element(u, self.G6q, self.B, self.D)
 
@@ -552,19 +649,186 @@ class AffineLatticeLaplace(ElementLaplace):
         return self._lattice_apply(x, True)
 
 
-def laplace_operator(space, dtype: torch.dtype, device, q: int | None = None):
-    """The Laplace operator lpfem's ``LaplacePA`` would run on ``space``
-    (the module docstring's rule): used for the fine operators and for every
-    multigrid level. The affine test is tied to ``dtype`` as lpfem's."""
-    h = separable_spacings(space)
+def laplace_operator(space, dtype: torch.dtype, device, q: int | None = None,
+                     mode: str = "pallas"):
+    """The Laplace operator lpfem's ``LaplacePA(mode=mode)`` would run on
+    ``space`` (the module docstring's rule): used for the fine operators and
+    for every multigrid level. The affine test is tied to ``dtype`` as
+    lpfem's."""
+    if mode not in APPLY_MODES:
+        raise ValueError(f"unknown apply mode {mode!r} (the operator's: "
+                         f"{', '.join(APPLY_MODES)})")
+    h = separable_spacings(space) if mode != "sumfact" else None
     if h is not None:
-        return SeparableLattice(space, dtype, device, q, spacings=h)
+        op = SeparableLattice(space, dtype, device, q, spacings=h)
+        op.mode = mode
+        return op
     C6 = affine_c6(space, space.p + 1 if q is None else q,
                    np.float32 if dtype == torch.float32 else np.float64)
-    if (C6 is not None and space.dof_dims is not None
+    if (mode == "pallas" and C6 is not None and space.dof_dims is not None
             and not space.periodic[1] and not space.periodic[2]):
         return AffineLatticeLaplace(space, dtype, device, q, C6)
-    return ElementLaplace(space, dtype, device, q, C6)
+    return ElementLaplace(space, dtype, device, q, C6, mode=mode)
+
+
+def assemble_csr(op, dtype: torch.dtype, elem_dofs=None, elems=None,
+                 n: int | None = None, chunk: int = 4096) -> torch.Tensor:
+    """The assembled element operator of ``op`` as a sparse CSR tensor on
+    ``op``'s device with 32-bit indices, duplicates summed: ``chunk``
+    element matrices at a time (float64, rounded to ``dtype``) into one
+    coordinate list, coalesced on the device. ``elems`` (element ids,
+    default all), ``elem_dofs [len(elems), L]`` (default the space's) and
+    ``n`` (default ``op.n_dofs``) place the rows and columns elsewhere (the
+    stacked local layouts of a sharded level). Raises where the nonzeros or
+    the rows do not fit 32-bit indices."""
+    ed = torch.as_tensor(op.space.elem_dofs if elem_dofs is None
+                         else elem_dofs, device=op.device)
+    n = op.n_dofs if n is None else n
+    ne, L = ed.shape
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rows do not fit 32-bit indices")
+    idx = torch.empty(2, ne * L * L, dtype=torch.int64, device=op.device)
+    val = torch.empty(ne * L * L, dtype=dtype, device=op.device)
+    for s in range(0, ne, chunk):
+        e = ed[s:s + chunk]
+        m = e.shape[0]
+        part = slice(s * L * L, (s + m) * L * L)
+        idx[0, part] = e[:, :, None].expand(m, L, L).reshape(-1)
+        idx[1, part] = e[:, None, :].expand(m, L, L).reshape(-1)
+        sel = slice(s, s + m) if elems is None else elems[s:s + m]
+        val[part] = op.element_matrices(sel).reshape(-1).to(dtype)
+    A = torch.sparse_coo_tensor(idx, val, (n, n),
+                                check_invariants=False).coalesce()
+    del idx, val
+    if A._nnz() >= 2 ** 31:
+        raise ValueError(f"{A._nnz()} nonzeros do not fit 32-bit indices")
+    with warnings.catch_warnings():       # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        A = A.to_sparse_csr()
+        # the coalesced values are a view of the uncoalesced list's storage:
+        # copied, so that the matrix holds nnz values and no more
+        crow, col, vals = (A.crow_indices().int(), A.col_indices().int(),
+                           A.values().clone())
+        del A
+        return torch.sparse_csr_tensor(crow, col, vals, size=(n, n),
+                                       check_invariants=False)
+
+
+def element_source(op):
+    """An operator with ``element_matrices`` for ``op``'s space: ``op``
+    itself, or for the Kronecker lattice (which has none) a float64
+    :class:`ElementLaplace` with the affine metric of its boxes."""
+    if hasattr(op, "element_matrices"):
+        return op
+    return ElementLaplace(op.space, torch.float64, op.device, op.q,
+                          affine_c6(op.space, op.q, np.float64))
+
+
+class AssembledLaplace:
+    """The fully assembled Laplace operator (``lpfem.operators.
+    AssembledLaplace``, ``lpfem/operators.py:1076-1148``): MFEM's
+    ``BilinearForm::Assemble`` with the hypre SpMV of the reference's
+    ``PF_linear_par`` configuration (``Solvers/PF_linear_par.cpp:114-120``).
+
+    The matrix is assembled on the operator's device from its element
+    matrices (:func:`assemble_csr`; an operator without them, the Kronecker
+    lattice, lends its space to a float64 :class:`ElementLaplace` for the
+    assembly) into a CSR tensor in the operator's dtype with 32-bit
+    indices; ``apply`` is one sparse matrix-vector product
+    (``torch.mv``, cuSPARSE on the card; lpfem's is an XLA ELL row sum).
+    lpfem assembles on the host row by row; here 2,179,584 rows at p = 4
+    (456M nonzeros) assemble in one pass on the card.
+
+    The solve uses it in place of the operator (``FreeSurfaceOperator(
+    op_solve=...)``): ``constrained_apply`` / ``constrained_apply_top``,
+    ``constrained_rhs`` and ``diag`` keep the operators' contracts.
+    :meth:`gauss_seidel_host` runs MFEM's serial ``GSSmoother`` sweeps on
+    the host.
+    """
+
+    mode = "assembled"
+
+    def __init__(self, op, chunk: int = 4096):
+        self.op = op
+        self.space = op.space
+        self.n_dofs = op.n_dofs
+        self.dtype = op.dtype
+        self.device = op.device
+        self.A = assemble_csr(element_source(op), op.dtype, chunk=chunk)
+        self.nnz = int(self.A.values().numel())
+        self._top = torch.as_tensor(op.space.top_plane_dofs(),
+                                    device=self.device)
+        self._scipy = None
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A x (one sparse matrix-vector product)."""
+        return torch.mv(self.A, x)
+
+    __call__ = apply
+
+    def constrained_apply(self, x: torch.Tensor,
+                          ess: torch.Tensor) -> torch.Tensor:
+        """Identity rows and columns on the essential dofs ``ess``."""
+        x0 = x.clone()
+        x0[ess] = 0.0
+        y = self.apply(x0)
+        y[ess] = x[ess]
+        return y
+
+    def constrained_apply_top(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`constrained_apply` on the free-surface dofs."""
+        return self.constrained_apply(x, self._top)
+
+    def constrained_rhs(self, b: torch.Tensor, ess_vals: torch.Tensor,
+                        ess: torch.Tensor | None = None):
+        """(B, x_bc), the contract of the operators'
+        ``constrained_rhs``."""
+        ess = self._top if ess is None else ess
+        x_bc = torch.zeros_like(b)
+        x_bc[ess] = ess_vals
+        B = b - self.apply(x_bc)
+        B[ess] = ess_vals
+        return B, x_bc
+
+    def diag(self) -> torch.Tensor:
+        """The matrix diagonal (a new tensor)."""
+        A = self.A
+        crow = A.crow_indices().long()
+        col = A.col_indices().long()
+        rows = torch.repeat_interleave(
+            torch.arange(self.n_dofs, device=self.device), crow.diff())
+        on = col == rows
+        d = torch.zeros(self.n_dofs, dtype=self.dtype, device=self.device)
+        d[rows[on]] = A.values()[on]
+        return d
+
+    def scipy(self) -> sp.csr_matrix:
+        """The matrix as a float64 SciPy CSR on the host (kept)."""
+        if self._scipy is None:
+            A = self.A
+            self._scipy = sp.csr_matrix(
+                (A.values().detach().to("cpu", torch.float64).numpy(),
+                 A.col_indices().cpu().numpy(),
+                 A.crow_indices().cpu().numpy()),
+                shape=(self.n_dofs, self.n_dofs))
+        return self._scipy
+
+    def gauss_seidel_host(self, b: np.ndarray, x0: np.ndarray,
+                          sweeps: int = 1) -> np.ndarray:
+        """Symmetric Gauss-Seidel sweeps on the host (SciPy triangular
+        solves; ``lpfem/operators.py:1129-1148``): MFEM's serial
+        ``GSSmoother`` (``Solvers/laplace_solver.cpp:112``), a sequential
+        validation path."""
+        from scipy.sparse.linalg import spsolve_triangular
+        A = self.scipy()
+        Lo = sp.tril(A, format="csr")
+        U = sp.triu(A, format="csr")
+        D = A.diagonal()
+        x = np.array(x0, dtype=np.float64)
+        for _ in range(sweeps):
+            x = spsolve_triangular(Lo, b - U @ x + D * x, lower=True)
+            x = spsolve_triangular(U, b - Lo @ x + D * x, lower=False)
+        return x
 
 
 class NodalZDerivative(nn.Module):

@@ -5,21 +5,24 @@ covers:
 
 - the generated Cartesian tanks (``periodic_tank``, ``finite_tank``), on a
   :class:`~lpfem_torch.space.LatticeSpace` built from the configuration;
-- an MFEM mesh file (``mesh_kind="mfem"``), loaded and refined
-  ``ref_levels`` times, on the topological
+- an MFEM or a Gmsh v2.2 mesh file (``mesh_kind="mfem"`` / ``"gmsh"``),
+  loaded and refined ``ref_levels`` times, on the topological
   :class:`~lpfem_torch.space.H1Space`;
 - a mesh passed in: on a :class:`~lpfem_torch.space.CurvedLatticeSpace` when
   its generator declares an element lattice (the curved half-cylinder tank
   of ``lpfem_torch.cylmesh``, sheared tanks), else on an ``H1Space``;
 
 each on the operator :func:`~lpfem_torch.operators.laplace_operator` picks
-for it, with Jacobi / Chebyshev / p-multigrid preconditioning, relaxation zones, the
+for it under ``apply_mode`` (``"assembled"``: the solve on the assembled
+:class:`~lpfem_torch.operators.AssembledLaplace` of the ``"fused"``
+operator, lpfem's ``PF_linear_par`` configuration; float64 or float32
+only), with Jacobi / Chebyshev / p-multigrid preconditioning, relaxation zones, the
 wave by modes, period or wavelength, and ``dtype`` float64, float32 or mixed
 (float64 state and outer residual, float32 inner solve; with
 ``hi_apply="ds"`` on a Kronecker lattice the outer loop in double-single
 arithmetic and the volume potential carried as a
-:class:`~lpfem_torch.ds.DS` pair). Anything else raises
-``NotImplementedError`` with the reason.
+:class:`~lpfem_torch.ds.DS` pair). Anything else raises ``ValueError`` with
+the reason, as lpfem's.
 """
 
 from __future__ import annotations
@@ -33,9 +36,10 @@ from . import resolve_device, state_dtypes
 from .analytic import AiryWave
 from .configs import Config
 from .ds import DS, ds_from_f64, ds_to_f64
-from .mesh import Mesh, load_mfem
+from .mesh import Mesh, load_gmsh, load_mfem
 from .multigrid import ChebyshevSmoother, PMultigrid, estimate_lmax
-from .operators import laplace_operator, nodal_z_derivative
+from .operators import (APPLY_MODES, AssembledLaplace, laplace_operator,
+                        nodal_z_derivative)
 from .space import CurvedLatticeSpace, H1Space, LatticeSpace, SurfaceSpace
 from .surface import (FreeSurfaceOperator, RelaxationZones, SolveCarry,
                       SolveStats, cabs_weight, cgen_weight)
@@ -47,14 +51,11 @@ _TANKS = ("periodic_tank", "finite_tank")
 
 
 def _check_supported(cfg: Config, mesh: Mesh | None) -> None:
-    if mesh is None and cfg.mesh_kind == "gmsh":
-        raise NotImplementedError(
-            "mesh_kind='gmsh': the Gmsh parser is not ported (ROADMAP A8); "
-            "generated tanks, MFEM mesh files and meshes passed in are")
-    if mesh is None and cfg.mesh_kind not in _TANKS + ("mfem",):
+    if mesh is None and cfg.mesh_kind not in _TANKS + ("mfem", "gmsh"):
         raise ValueError(f"unknown mesh_kind {cfg.mesh_kind!r}")
-    if mesh is None and cfg.mesh_kind == "mfem" and cfg.mesh_file is None:
-        raise ValueError("mesh_kind='mfem' needs mesh_file")
+    if (mesh is None and cfg.mesh_kind in ("mfem", "gmsh")
+            and cfg.mesh_file is None):
+        raise ValueError(f"mesh_kind={cfg.mesh_kind!r} needs mesh_file")
     if cfg.hi_apply not in ("auto", "ds", "f64"):
         raise ValueError(f"unknown hi_apply {cfg.hi_apply!r}")
     if cfg.hi_apply == "ds" and cfg.dtype != "mixed":
@@ -62,9 +63,12 @@ def _check_supported(cfg: Config, mesh: Mesh | None) -> None:
         # FreeSurfaceOperator's
         raise ValueError("hi_apply='ds' needs dtype='mixed' on a separable "
                          "lattice with the top-plane essential set")
-    if cfg.apply_mode == "assembled":
-        raise NotImplementedError("apply_mode='assembled': the assembled "
-                                  "SpMV operator is not ported yet")
+    if cfg.apply_mode not in APPLY_MODES + ("assembled",):
+        raise ValueError(f"unknown apply_mode {cfg.apply_mode!r}")
+    if cfg.apply_mode == "assembled" and cfg.dtype == "mixed":
+        raise ValueError("apply_mode='assembled' + dtype='mixed' is not "
+                         "supported (the mixed inner solve is the PA "
+                         "path); use float64 or float32")
     if cfg.wave_by not in ("modes", "period", "wavelength"):
         raise ValueError(f"unknown wave_by {cfg.wave_by!r}")
     if cfg.precond not in ("jacobi", "chebyshev", "pmg"):
@@ -72,10 +76,10 @@ def _check_supported(cfg: Config, mesh: Mesh | None) -> None:
 
 
 def build_mesh(cfg: Config) -> Mesh:
-    """The mesh of ``mesh_kind="mfem"``: the file, refined ``ref_levels``
-    times (``lpfem.problem.build_mesh``, ``lpfem/problem.py:28-41``; the
-    generated tanks need no mesh here)."""
-    m = load_mfem(cfg.mesh_file)
+    """The mesh of ``mesh_kind="mfem"`` or ``"gmsh"``: the file, refined
+    ``ref_levels`` times (``lpfem.problem.build_mesh``,
+    ``lpfem/problem.py:28-41``; the generated tanks need no mesh here)."""
+    m = (load_gmsh if cfg.mesh_kind == "gmsh" else load_mfem)(cfg.mesh_file)
     for _ in range(cfg.ref_levels):
         m = m.uniform_refine()
     return m
@@ -131,11 +135,17 @@ class Problem:
         self.ess = torch.as_tensor(self.surf.surf_to_vol, device=self.device)
         bbmin, bbmax = self.space.bounding_box()
         self.wave = build_wave(cfg, bbmin, bbmax)
+        # apply_mode="assembled" (``lpfem/problem.py:86-106``): the fused
+        # operator keeps the geometric and preconditioning roles, the solve
+        # runs on its assembled matrix
+        assembled = cfg.apply_mode == "assembled"
+        mode = "fused" if assembled else cfg.apply_mode
         self.op = laplace_operator(self.space, op_dtype, self.device,
-                                   q=cfg.quad)
+                                   q=cfg.quad, mode=mode)
         self.op_hi = (laplace_operator(self.space, torch.float64,
-                                       self.device, q=cfg.quad)
+                                       self.device, q=cfg.quad, mode=mode)
                       if self.mixed else None)
+        self.op_solve = AssembledLaplace(self.op) if assembled else None
         self.dt = float(cfg.t_final_periods * self.wave.T / cfg.nsteps)
         self.t_final = float(cfg.t_final_periods * self.wave.T)
 
@@ -174,7 +184,7 @@ class Problem:
             precond_fn=precond_fn, op_hi=self.op_hi,
             ir_max_outer=cfg.ir_max_outer,
             ir_inner_rtol_sq=cfg.ir_inner_rtol_sq, relax=self.relax,
-            hi_apply=cfg.hi_apply)
+            hi_apply=cfg.hi_apply, op_solve=self.op_solve)
         self.last_solver_stats = None
         self._last_ok = None
 

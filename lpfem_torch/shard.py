@@ -34,9 +34,11 @@ h-levels, each level over the same element slabs), and
 :class:`ShardedProblem` (the RK4 time loop; ``from_config`` builds the
 tables on the host and places them on the device).
 
-Not ported: the ELL level of ``apply_mode="assembled"`` (it needs the
-assembled operator, ROADMAP A4), and shards on several devices (the leading
-axis as a ``DTensor`` over an NCCL group; ROADMAP A6b).
+Under ``apply_mode="assembled"`` the fine level is the ELL level
+(``ShardedLevel(..., ell=True)``): each shard's partial assembly over its
+local layout, applied through the same exchange. Not ported: shards on
+several devices (the leading axis as a ``DTensor`` over an NCCL group;
+ROADMAP A6b).
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ from .kernels.sep_apply import check_scal, sep_apply_shard
 from .multigrid import estimate_lmax
 from .operators import (AffineLatticeLaplace, ElementLaplace,
                         SeparableLattice, _fold_table, _reference_matrices,
-                        laplace_operator, separable_spacings)
+                        assemble_csr, element_source, laplace_operator,
+                        separable_spacings)
 from .solvers import pcg, pcg_ir
 from .surface import SolveCarry, SolveStats
 from .timestep import rk4_run
@@ -683,7 +686,14 @@ class ShardedLevel(ShardedExchange):
     - ``"element"``: anything else (the compact layout; curved elements):
       the E-vectors of every shard through B3a (affine metric ``C6``, built
       from the space where the operator has none) or B3b (full metric
-      ``G6q``), folded and assembled.
+      ``G6q``), folded and assembled;
+    - ``"ell"`` (``ell=True``, the fine level of ``apply_mode="assembled"``;
+      ``lpfem/shard.py:637-683``): each shard's partial assembly, its own
+      elements' matrices over its local layout ``[own, trash, halo,
+      zero]`` (hypre's diag + offd split), as one block-diagonal CSR over the
+      stacked local vectors; the apply gathers the local vectors, runs one
+      sparse matrix-vector product and adds the halo rows onto their owners
+      through the exchange.
 
     On the two window applies the top-plane constraint runs inside the
     kernel (``scal`` rows ``(zt, own0)``: the shard holding the top plane
@@ -692,7 +702,8 @@ class ShardedLevel(ShardedExchange):
     """
 
     def __init__(self, op, pt: Partition, ess_dofs: np.ndarray,
-                 comm: ShardComm, device, exchange: str = "auto"):
+                 comm: ShardComm, device, exchange: str = "auto",
+                 ell: bool = False):
         super().__init__(pt, comm, device, exchange)
         self.op = op
         dtype = op.dtype
@@ -719,7 +730,10 @@ class ShardedLevel(ShardedExchange):
             np.sort(ess), _top_plane(op.space)))
 
         w = pt.win
-        if w is not None and isinstance(op, SeparableLattice):
+        if ell:
+            self.mode = "ell"
+            self._init_ell()
+        elif w is not None and isinstance(op, SeparableLattice):
             self.mode = "sep"
             self._init_sep(put)
         elif (w is not None and isinstance(op, AffineLatticeLaplace)
@@ -729,7 +743,7 @@ class ShardedLevel(ShardedExchange):
         else:
             self.mode = "element"
             self._init_element(put, npdt)
-        if self.mode != "element":
+        if self.mode in ("sep", "affine"):
             self._init_scal()
 
     # ------------------------------------------------------------- tables
@@ -801,7 +815,29 @@ class ShardedLevel(ShardedExchange):
             self.w3 = put(np.einsum("c,b,a->cba", b.qwts, b.qwts,
                                     b.qwts).reshape(-1))
 
+    def _init_ell(self) -> None:
+        """The stacked partial assemblies: shard d's element matrices over
+        rows and columns ``d * Nloc + led[d]``, Nloc = N_max + 1 + H_max + 1
+        (``lpfem/shard.py:637-674``), in the operator's dtype, assembled on
+        the operator's device and placed on the level's."""
+        pt = self.pt
+        nloc = self.N_max + 1 + self.H_max + 1
+        led = pt.local_elem_dofs.astype(np.int64)
+        elems = np.concatenate([np.asarray(es, dtype=np.int64)
+                                for es in pt.elems_of])
+        rows = np.concatenate([d * nloc + led[d, :len(es)]
+                               for d, es in enumerate(pt.elems_of)])
+        self.A = assemble_csr(element_source(self.op), self.dtype,
+                              elem_dofs=rows, elems=elems,
+                              n=self.ndev * nloc).to(self.device)
+
     # ------------------------------------------------------------- applies
+    def _ell_apply(self, x: torch.Tensor) -> torch.Tensor:
+        n1 = self.N_max + 1
+        x_loc = x.reshape(-1)[self._loc_route]                # [ndev, Nloc]
+        y = torch.mv(self.A, x_loc.reshape(-1)).view(self.ndev, -1)
+        return self.assemble_halo(y[:, :n1], y[:, n1:n1 + self.H_max])
+
     def _window_apply(self, x: torch.Tensor,
                       scal: torch.Tensor) -> torch.Tensor:
         w = self.pt.win
@@ -831,12 +867,14 @@ class ShardedLevel(ShardedExchange):
         """``A x`` on the owned lanes, no constraint."""
         if self.mode == "element":
             return self._element_apply(x)
+        if self.mode == "ell":
+            return self._ell_apply(x)
         return self._window_apply(x, self.scal_o)
 
     def apply_c(self, x: torch.Tensor) -> torch.Tensor:
         """The constrained apply: identity rows and columns on the essential
         dofs."""
-        if self.mode != "element" and self._ess_top:
+        if self.mode in ("sep", "affine") and self._ess_top:
             return self._window_apply(x, self.scal_c)
         y = self.apply_own(x * self.free)
         return y * self.free + x * self.ess
@@ -1092,10 +1130,6 @@ class ShardedPMG:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.apply_mode == "assembled":
-        raise NotImplementedError(
-            "apply_mode='assembled': the sharded ELL level needs the "
-            "assembled operator, which is not ported (ROADMAP A4)")
     if cfg.hi_apply == "ds":
         raise NotImplementedError("hi_apply='ds': lpfem has no sharded "
                                   "double-single path")
@@ -1128,7 +1162,10 @@ class ShardedProblem:
         self.N_max = pt.N_max
         ess = np.asarray(prob.surf.surf_to_vol)
         exchange = cfg.shard_exchange
-        self.fine = ShardedLevel(prob.op, pt, ess, self.comm, dev, exchange)
+        # apply_mode="assembled": the solve runs on each shard's partial
+        # assembly (``lpfem/shard.py:1080-1083``)
+        self.fine = ShardedLevel(prob.op, pt, ess, self.comm, dev, exchange,
+                                 ell=prob.op_solve is not None)
         self.fine_hi = (ShardedLevel(prob.op_hi, pt, ess, self.comm, dev,
                                      exchange)
                         if prob.op_hi is not None else None)

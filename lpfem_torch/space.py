@@ -399,8 +399,14 @@ def _canonical_uv(r, s, p, k, fwd):
     return u, v
 
 
+NATIVE_MIN_ENTRIES = 2_000_000   # ne (p+1)^3 above which numbering is native
+
+
 def build_hex_dofs(elems: np.ndarray, n_verts: int, p: int):
-    """Global H1 dof numbering on a conforming hex mesh.
+    """Global H1 dof numbering on a conforming hex mesh: NumPy up to
+    ``NATIVE_MIN_ENTRIES`` E-vector entries, above it the native library
+    (:func:`lpfem_torch.native.build_hex_dofs`, edge and face ids in
+    first-encounter order), as lpfem switches.
 
     Returns ``(elem_dofs [ne, (p+1)^3] int64 in lattice-lex order (x fastest),
     n_dofs, face_info)`` where ``face_info = (uniq_faces, face_id [ne, 6])``
@@ -431,6 +437,13 @@ def build_hex_dofs(elems: np.ndarray, n_verts: int, p: int):
             "mesh has multiply-adjacent faces (e.g. a periodic axis with "
             "fewer than 3 elements); H1 dof numbering would merge distinct "
             "dofs at p >= 2")
+
+    # lpfem's rule (``lpfem/space.py:90-96``): the native numbering above
+    # NATIVE_MIN_ENTRIES E-vector entries (the same sharing, ids permuted)
+    if ne * p1 ** 3 > NATIVE_MIN_ENTRIES:
+        from .native import build_hex_dofs as native_hex_dofs
+        elem_dofs, n_dofs = native_hex_dofs(elems, n_verts, p)
+        return elem_dofs, n_dofs, (uniq_f, face_id)
 
     elem_dofs = np.zeros((ne, p1 ** 3), dtype=np.int64)
     for v, (vx, vy, vz) in enumerate(HEX_VERTS):
@@ -585,14 +598,15 @@ class H1Space(_NodalProjection):
     :class:`StructuredInfo`). Otherwise a z-extruded mesh is renumbered onto
     vertical columns (``self.extruded``), and any other mesh keeps the
     topological numbering. Every detection that fails falls through to the
-    next, silently, as in lpfem.
+    next, silently, as in lpfem. ``structured=False`` skips every detection
+    (the topological numbering on any mesh, lpfem's flag).
     """
 
-    def __init__(self, mesh: Mesh, p: int):
+    def __init__(self, mesh: Mesh, p: int, structured: bool = True):
         self.struct = None
         self.extruded = None
         det = None
-        lattice = mesh.elem_lattice is not None
+        lattice = structured and mesh.elem_lattice is not None
         if lattice:
             # generator-declared logical lattice (curved tensor-product
             # meshes, e.g. the polar cylinder block): reorder lattice-major
@@ -601,7 +615,7 @@ class H1Space(_NodalProjection):
             eperm = np.argsort(el[:, 0] + nex * (el[:, 1] + ney * el[:, 2]),
                                kind="stable")
         else:
-            det = _detect_structured_mesh(mesh)
+            det = _detect_structured_mesh(mesh) if structured else None
             if det is not None:
                 elem_dims, eperm = det
         if lattice or det is not None:
@@ -621,7 +635,7 @@ class H1Space(_NodalProjection):
             self._renumber_from_lattice()
         elif det is not None:
             self._try_structured_renumber(elem_dims)
-        if self.struct is None:
+        if self.struct is None and structured:
             self._try_extruded_renumber()
 
         # boundary face -> (element, local face) lookup

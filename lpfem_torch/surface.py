@@ -155,8 +155,15 @@ class FreeSurfaceOperator:
                  precond_fn=None, op_hi=None,
                  ir_max_outer: int = 4, ir_inner_rtol_sq: float = 1e-8,
                  relax: RelaxationZones | None = None,
-                 hi_apply: str = "auto"):
-        """``hi_apply`` picks the outer arithmetic of the mixed solve by
+                 hi_apply: str = "auto", op_solve=None):
+        """``op_solve`` replaces ``op`` in the solve of a float64 or
+        float32 run (lpfem's, ``lpfem/surface.py:162-176``): the CG and its
+        Jacobi diagonal run on it (the assembled
+        :class:`~lpfem_torch.operators.AssembledLaplace` of
+        ``apply_mode="assembled"``), while ``op`` keeps the geometric roles
+        (the z-derivative) and the preconditioner's.
+
+        ``hi_apply`` picks the outer arithmetic of the mixed solve by
         lpfem's rule (``lpfem/surface.py:201-235``): ``"ds"`` requires it
         double-single and raises unless ``op_hi`` is a ``SeparableLattice``
         with the top-plane essential set; ``"f64"`` forces float64;
@@ -165,6 +172,7 @@ class FreeSurfaceOperator:
         off a TPU."""
         self.op = op
         self.op_hi = op_hi
+        self.op_solve = op if op_solve is None else op_solve
         self.surf = surf
         self.g = g
         self.relax = relax
@@ -180,7 +188,7 @@ class FreeSurfaceOperator:
                                        ess=surf.surf_to_vol)
         if precond_fn is None:
             # Jacobi with identity on the essential dofs
-            diag = op.diag()
+            diag = self.op_solve.diag()
             diag[self.ess] = 1.0
             inv_diag = 1.0 / diag
             precond_fn = lambda r: r * inv_diag  # noqa: E731
@@ -201,7 +209,7 @@ class FreeSurfaceOperator:
         (``Solvers/PF_linear_periodic.cpp:71-92``). Returns (phi, info)."""
         if self._ds_op is not None:
             return self._solve_laplace_ds(phi_fs, phi_warm)
-        sop = self.op_hi if self.op_hi is not None else self.op
+        sop = self.op_hi if self.op_hi is not None else self.op_solve
         b = torch.zeros(sop.n_dofs, dtype=phi_warm.dtype,
                         device=phi_warm.device)
         B, _ = sop.constrained_rhs(b, phi_fs, self.ess)
@@ -217,7 +225,7 @@ class FreeSurfaceOperator:
                          inner_max_iter=self.cg_max_iter,
                          lo_dtype=self.op.dtype)
         else:
-            res = pcg(self.op.constrained_apply_top, B, x0,
+            res = pcg(self.op_solve.constrained_apply_top, B, x0,
                       precond_fn=self._precond,
                       rtol_sq=self.cg_rtol_sq, atol_sq=self.cg_atol_sq,
                       max_iter=self.cg_max_iter)

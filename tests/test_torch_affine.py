@@ -471,9 +471,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(tmp_path):
         kpa._check("pa_apply_affine", u, op.C6, op.B, op.D,
                    extra=[("w3", op.w3[:5].contiguous(), (27,))])
     with pytest.raises(ValueError, match="2 <= p\\+1"):
-        kpa.check_tables("k", u, [("B", torch.zeros(9, 9, dtype=u.dtype),
+        kpa.check_tables("k", u, [("B", torch.zeros(12, 12, dtype=u.dtype),
                                    None),
-                                  ("D", torch.zeros(9, 9, dtype=u.dtype),
+                                  ("D", torch.zeros(12, 12, dtype=u.dtype),
                                    None)])
     with pytest.raises(ValueError, match="lattice"):
         AffineLatticeLaplace(H1Space(_rotated_tank(), 1), torch.float64,

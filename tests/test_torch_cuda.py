@@ -19,7 +19,8 @@ in another order, which moves their exits by at most one iteration per
 inner pass. The shard modes of B1 and B2 (``-k shard``): against their
 plain versions over 3 and 4 stacked windows at the tolerances above, twice
 for the same bits; one sharded RK4 step against the single-device step on
-the GPU, 1e-8 absolute (lpfem's dryrun bound).
+the GPU, 1e-8 absolute (lpfem's dryrun bound). The element kernels at
+p = 8..10 (``-k wide``), as at the lower orders.
 """
 
 import numpy as np
@@ -445,6 +446,56 @@ def test_sep_apply_is_one_kernel_and_no_memset_or_copy(cuda, p):
     assert len(device) == 1, device
     assert 1 <= sum(device.values()) <= 10, device
     assert all("sep_tile_kernel" in k for k in device), device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("p,dq", [(8, 1), (9, 1), (10, 1), (7, 2), (10, 0)])
+def test_element_kernels_at_the_wide_orders(cuda, p, dq, dtype, tol):
+    """B3b on the small cylinder tank, B2 and B3a on a leaning tank, at
+    p = 8..10 (the column body's second general instantiation, up to
+    p+1 = q = 11, an element over four warps and, in double, more than
+    48 KB of shared memory per block), against their plain versions, each
+    call a launch, B2 bitwise repeatable."""
+    mesh = make_half_cylinder_tank(n_theta=8, n_r=3, nz=1, geom_order=p)
+    op = ElementLaplace(CurvedLatticeSpace(mesh, p), dtype, cuda, q=p + dq)
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    u = torch.randn(op.G6q.shape[0], (p + 1) ** 3, generator=gen,
+                    device=cuda, dtype=dtype)
+    before = kpa.LAUNCHES_BY_P.get(p, 0)
+    ye = kpa.pa_apply_element(u, op.G6q, op.B, op.D)
+    assert kpa.LAUNCHES_BY_P[p] == before + 1
+    ye_ref = kpa.pa_apply_element_reference(u, op.G6q, op.B, op.D)
+    torch.cuda.synchronize()
+    assert float((ye - ye_ref).abs().max() / ye_ref.abs().max()) < tol
+
+    space = CurvedLatticeSpace(leaning_tank(3, 2, 2, **TANK), p)
+    aop = AffineLatticeLaplace(space, dtype, cuda, q=p + dq)
+    x = torch.randn(aop.n_dofs, generator=gen, device=cuda, dtype=dtype)
+    args = (aop.C6, aop.w3, aop.B, aop.D, space.elem_dims, space.periodic)
+    for ess in (False, True):
+        y = klat.lattice_affine_apply(x, *args, ess)
+        assert torch.equal(y, klat.lattice_affine_apply(x, *args, ess))
+        y_ref = klat.lattice_affine_apply_reference(x, *args, ess)
+        torch.cuda.synchronize()
+        assert float((y - y_ref).abs().max() / y_ref.abs().max()) < tol
+    ua = aop.gather(x)
+    before = kpa.LAUNCHES_AFFINE_BY_P.get(p, 0)
+    ye = kpa.pa_apply_affine(ua, aop.C6, aop.w3, aop.B, aop.D)
+    assert kpa.LAUNCHES_AFFINE_BY_P[p] == before + 1
+    ye_ref = kpa.pa_apply_affine_reference(ua, aop.C6, aop.w3, aop.B, aop.D)
+    torch.cuda.synchronize()
+    assert float((ye - ye_ref).abs().max() / ye_ref.abs().max()) < tol
+
+
+@pytest.mark.cuda
+def test_element_kernels_refuse_p11(cuda):
+    B = torch.zeros(12, 12, device=cuda)
+    u = torch.zeros(2, 12 ** 3, device=cuda)
+    with pytest.raises(ValueError, match="<= 11"):
+        kpa.pa_apply_element(u, torch.zeros(2, 6 * 12 ** 3, device=cuda),
+                             B, B)
 
 
 @pytest.mark.cuda

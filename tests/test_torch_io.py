@@ -62,7 +62,8 @@ def test_vtu_text_matches_lpfem(tmp_path, p):
     lio.write_vtu(str(tmp_path / "l.vtu"), ls, {"phi": f}, binary=False)
     ref = (tmp_path / "l.vtu").read_bytes()
     for name, sp, v in (("h1", ps, f), ("lat", lat, torch.tensor(f))):
-        pio.write_vtu(str(tmp_path / f"{name}.vtu"), sp, {"phi": v})
+        pio.write_vtu(str(tmp_path / f"{name}.vtu"), sp, {"phi": v},
+                      binary=False)
         assert (tmp_path / f"{name}.vtu").read_bytes() == ref, name
 
     lsu, psu = LSurfaceSpace(ls, attr=2), SurfaceSpace(ps, attr=2)
@@ -70,7 +71,8 @@ def test_vtu_text_matches_lpfem(tmp_path, p):
     lio.write_vtu_surface(str(tmp_path / "ls.vtu"), lsu,
                           {"eta": g, "phi_fs": 2 * g}, binary=False)
     pio.write_vtu_surface(str(tmp_path / "ps.vtu"), psu,
-                          {"eta": g, "phi_fs": 2 * torch.tensor(g)})
+                          {"eta": g, "phi_fs": 2 * torch.tensor(g)},
+                          binary=False)
     assert (tmp_path / "ls.vtu").read_bytes() == \
         (tmp_path / "ps.vtu").read_bytes()
 
@@ -84,7 +86,7 @@ def test_periodic_lattice_vtu_matches_lpfem(tmp_path):
     np.testing.assert_array_equal(lat.elem_dofs, ls.elem_dofs)
     f = _fields(ls.n_dofs, 3)
     lio.write_vtu(str(tmp_path / "l.vtu"), ls, {"phi": f}, binary=False)
-    pio.write_vtu(str(tmp_path / "p.vtu"), lat, {"phi": f})
+    pio.write_vtu(str(tmp_path / "p.vtu"), lat, {"phi": f}, binary=False)
     assert (tmp_path / "l.vtu").read_bytes() == \
         (tmp_path / "p.vtu").read_bytes()
 
@@ -98,7 +100,7 @@ def test_paraview_collection_matches_lpfem(tmp_path):
     for cycle, t in ((10, 0.125), (20, 0.25)):
         assert lc.save(cycle, t, lio.write_vtu, ls, {"phi": f},
                        binary=False) == pc.save(cycle, t, pio.write_vtu, ps,
-                                                {"phi": f})
+                                                {"phi": f}, binary=False)
     for name in ("run_vol.pvd", "run_vol_000010.vtu", "run_vol_000020.vtu"):
         assert (tmp_path / "l" / "run_vol" / name).read_bytes() == \
             (tmp_path / "p" / "run_vol" / name).read_bytes()

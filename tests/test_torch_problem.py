@@ -109,9 +109,10 @@ def test_problem_matches_lpfem(dtype, monkeypatch):
 
 
 @pytest.mark.parametrize("override,error,reason", [
-    (dict(mesh_kind="gmsh", mesh_file="x.msh"), NotImplementedError, "A8"),
+    (dict(mesh_kind="gmsh"), ValueError, "needs mesh_file"),
     (dict(hi_apply="ds", dtype="float64"), ValueError, "hi_apply='ds' needs"),
-    (dict(apply_mode="assembled"), NotImplementedError, "assembled"),
+    (dict(apply_mode="assembled", dtype="mixed"), ValueError,
+     "'assembled' \\+ dtype='mixed'"),
     (dict(mesh_kind="mfem"), ValueError, "mesh_file"),
     (dict(mesh_kind="tetra"), ValueError, "unknown mesh_kind"),
 ])

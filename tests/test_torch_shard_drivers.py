@@ -16,8 +16,8 @@ entry points that run it, on the CPU (plain versions of the kernels).
   1e-24 (the same cold iterations, every stage converged, the final
   max|eta| within 1e-10 relative; at the protocol's 1e-16 two valid runs
   differ by ~3e-7), ``apply_bench``'s sharded rows.
-- ``ShardedProblem`` refuses ``apply_mode="assembled"`` (naming ROADMAP A4)
-  and ``hi_apply="ds"``.
+- ``ShardedProblem`` refuses ``apply_mode="assembled"`` with ``dtype=
+  "mixed"`` (as lpfem's ``Problem``) and ``hi_apply="ds"``.
 """
 
 import json
@@ -107,11 +107,11 @@ def test_apply_bench_sharded_rows_on_cpu():
     assert r["sharded_window_ms"] > 0 and r["sharded_compact_ms"] > 0
 
 
-@pytest.mark.parametrize("override,reason", [
-    (dict(apply_mode="assembled"), "A4"), (dict(hi_apply="ds",
-                                                 dtype="mixed"), "ds")])
-def test_sharded_problem_refuses_unported(override, reason):
+@pytest.mark.parametrize("override,error,reason", [
+    (dict(apply_mode="assembled", dtype="mixed"), ValueError, "assembled"),
+    (dict(hi_apply="ds", dtype="mixed"), NotImplementedError, "ds")])
+def test_sharded_problem_refuses_unported(override, error, reason):
     cfg = lpfem_torch.preset("scaling_base", nx=4, ny=2, nz=8, order=2,
                              **override)
-    with pytest.raises(NotImplementedError, match=reason):
+    with pytest.raises(error, match=reason):
         ShardedProblem.from_config(cfg, 4, device="cpu")
