@@ -211,6 +211,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      steps (no B3b launch) against the same run in the default mode (rim
      envelope within 1e-8).
 
+11. Shards as processes (``lpfem_torch.dist``: one gloo rank per shard on
+    the one card, launched, timed out, killed and reaped by
+    ``run_ranks``; each rank builds ``ShardedProblem.from_config`` with
+    a ``shard.GroupComm`` and keeps its row; the exchange staged through
+    the host), each rank's launch counts set to 0 just before its run and
+    read just after:
+   - 11a: 9b's tank (refs 2, order 4, mixed, p-multigrid, 2,179,584 dofs)
+     at r.z <= rz0*1e-20 and dt = T/40 (phase 3's accuracy run: the
+     protocol's T/10 grows the state, so valid runs drift apart) over 4
+     ranks for 2 steps against the stacked 4-shard run from the same state
+     with the same smoother bounds: y and the global potential within
+     1e-10 of max|y| / max|phi|, the per-step maximum iterations within one
+     per outer pass, B1-shard launched (summed over the ranks); prints the
+     set-up seconds per rank, the wall per step beside the stacked run's
+     and the host-staged exchange's share of it (CUDA events from each
+     collective's copy to the host to its copy back) and one shift alone
+     (host clock, device synchronised), beside its two copies alone and
+     gloo alone on host tensors.
+   - 11b: 9c's leaning tank over 3 ranks for 1 step, the same check,
+     B2-shard launched.
+   After 11a, after phase 11 and just before the kernels line the script
+   lists its live descendants (``/proc/<pid>/task/*/children``,
+   recursively) and fails if there is one; a failed rank fails the run
+   after its siblings are reaped.
+
 Phases 3, 4 (float64), 5A, 5B, 6 and 9b each profile one more RK4 step with
 torch.profiler, outside the timed window: device kernel time by category and
 the device's busy share. Each phase's own time is printed.
@@ -218,7 +243,8 @@ the device's busy share. Each phase's own time is printed.
 Prints one JSON line describing the kernels (B1's ``orders_on_path``: the
 orders phases 7-8 launched it at; B2's, B3a's and B3b's: the orders phases
 4, 5, 10a and 10b launched them at, with their p = 8..10 rows under
-``wide_orders``; the shard modes' ``launches`` from 9b's and 9c's runs),
+``wide_orders``; the shard modes' ``launches`` from 9b's and 9c's runs,
+and ``launches_under_ranks`` from 11a's and 11b's),
 then as the last line
 ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``.
@@ -3039,6 +3065,157 @@ def phase_new_drivers(report: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+RANK_SHARDS = 4                # 11a: the z-slabs of 9b, one per rank
+RANK_STEPS = 2
+RANK_LEAN_SHARDS = 3           # 11b: 11, 11, 10 leaning layers
+RANK_TIMEOUT = 600             # seconds a run's ranks may take
+RANK_TOL = 1e-10               # of max|y| (max|phi|): the sharded bound
+
+
+def _check_no_descendants(where: str) -> None:
+    """Raise if this process has a live descendant (``/proc``)."""
+    from lpfem_torch.dist import live_descendants
+    left = live_descendants()
+    print(f"[11] live descendants {where}: {left}")
+    if left:
+        raise AssertionError(f"{where}: processes left running: {left}")
+
+
+def _stacked_run(cfg, ndev, steps, mesh=None) -> dict:
+    """The stacked ``ShardedProblem.from_config`` run the ranks are held
+    to: ``steps`` steps from the initial state, its wall per step and its
+    running maximum of the CG iterations after every step."""
+    import torch
+    from lpfem_torch.shard import ShardedProblem
+
+    t0 = time.perf_counter()
+    sp = ShardedProblem.from_config(cfg, ndev, device="cuda", mesh=mesh)
+    y0, phi0 = sp.initial_state()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    its, walls, last = [], [], [time.perf_counter()]
+
+    def record(t, y, aux):
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - last[0])
+        last[0] = time.perf_counter()
+        its.append(aux.stats.max_iters)
+
+    _zero_shard_counts()
+    _, y, phi = sp.run(n_steps=steps, state=(y0, phi0), record=record)
+    torch.cuda.synchronize()
+    counts = _read_shard_counts()
+    sp.check_state(y, phi)
+    if sp.last_solver_stats.unconverged:
+        raise AssertionError(f"stacked run: {sp.last_solver_stats}")
+    out = dict(y=y.cpu().numpy(), phi=sp.phi_global(phi), iters=its,
+               step_walls_s=walls, setup_s=setup, lmax=sp.pmg.lmax,
+               launches=counts, levels=[lv.mode for lv in sp.pmg.levels])
+    del sp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ranks_vs_stacked(tag, cfg_kw, ndev, steps, mesh_spec, kernel) -> dict:
+    """The spec's run over ``ndev`` gloo ranks on the card (``lpfem_torch.
+    dist.run_spec``) against the stacked run from the same state with the
+    same smoother bounds: y and the potential within ``RANK_TOL``, the
+    per-step maximum iterations within one per outer pass, ``kernel``
+    launched, summed over the ranks."""
+    import numpy as np
+    import lpfem_torch
+    from lpfem_torch import dist
+
+    mesh = None
+    if mesh_spec is not None:
+        mesh = dist._mesh({"mesh": mesh_spec})
+    cfg = lpfem_torch.preset("scaling_base", **cfg_kw)
+    ref = _stacked_run(cfg, ndev, steps, mesh)
+    del mesh
+    spec = {"preset": "scaling_base", "config": cfg_kw, "steps": steps,
+            "device": "cuda", "lmax": ref["lmax"], "timing": True,
+            "mesh": mesh_spec}
+    t0 = time.perf_counter()
+    res = dist.run_spec(spec, ndev, f"chiprun_out/ranks-{tag}",
+                        timeout=RANK_TIMEOUT)
+    launch_s = time.perf_counter() - t0
+    ranks = res["ranks"]
+    dy = float(np.max(np.abs(res["y"] - ref["y"])))
+    ymax = float(np.max(np.abs(ref["y"])))
+    dphi = float(np.max(np.abs(res["phi"] - ref["phi"])))
+    phimax = float(np.max(np.abs(ref["phi"])))
+    its = ranks[0]["max_iters_per_step"]
+    launches = sum(r["launches"][kernel] for r in ranks)
+    walls = ranks[0]["step_walls_s"]
+    exch = [r["exchange_s"] / sum(r["step_walls_s"]) for r in ranks]
+    calls = ranks[0]["collectives"]
+    print(f"[{tag}] {ndev} gloo ranks on the card ({ranks[0]['dofs']} dofs, "
+          f"levels {ref['levels']}): set-up per rank "
+          f"{[round(r['setup_s'], 2) for r in ranks]} s (stacked "
+          f"{ref['setup_s']:.2f} s), wall per step {walls} s (stacked "
+          f"{ref['step_walls_s']} s), the ranks' call {launch_s:.1f} s; "
+          f"max|dy| {dy:.3e} of max|y| {ymax:.3e}, max|dphi| {dphi:.3e} of "
+          f"max|phi| {phimax:.3e} (limit {RANK_TOL:g} of each); iterations "
+          f"per step {its} (stacked {ref['iters']}); {kernel} launches "
+          f"{[r['launches'][kernel] for r in ranks]} (stacked "
+          f"{ref['launches'][kernel]}); collectives per rank {calls}; "
+          f"exchange share of the steps' wall per rank "
+          f"{[round(e, 3) for e in exch]}; one shift alone "
+          f"{[round(r['shift_ms'], 4) for r in ranks]} ms (its two copies "
+          f"{[round(r['staging_ms'], 4) for r in ranks]} ms, gloo on host "
+          f"tensors {[round(r['gloo_ms'], 4) for r in ranks]} ms)")
+    outer = lpfem_torch.preset("scaling_base", **cfg_kw).ir_max_outer
+    if (not dy <= RANK_TOL * ymax or not dphi <= RANK_TOL * phimax
+            or any(r["unconverged"] for r in ranks)
+            or any(r["max_iters_per_step"] != its for r in ranks)
+            or len(its) != steps
+            or any(abs(a - b) > outer for a, b in zip(its, ref["iters"]))):
+        raise AssertionError(f"{tag}: ranks vs stacked: dy {dy}, dphi "
+                             f"{dphi}, iterations {its} vs {ref['iters']}, "
+                             f"{ranks}")
+    if launches <= 0:
+        raise AssertionError(f"{tag}: the ranks launched no {kernel}")
+    return dict(max_abs_dy=dy, max_abs_y=ymax, max_abs_dphi=dphi,
+                max_abs_phi=phimax, iters=its, stacked_iters=ref["iters"],
+                launches=launches,
+                launches_per_rank=[r["launches"][kernel] for r in ranks],
+                launches_per_step=launches / steps,
+                stacked_launches_per_step=ref["launches"][kernel] / steps,
+                setup_s=[r["setup_s"] for r in ranks],
+                stacked_setup_s=ref["setup_s"], step_walls_s=walls,
+                stacked_step_walls_s=ref["step_walls_s"],
+                exchange_share=exch, collectives=calls, ranks_call_s=launch_s,
+                shift_ms=[r["shift_ms"] for r in ranks],
+                staging_ms=[r["staging_ms"] for r in ranks],
+                gloo_ms=[r["gloo_ms"] for r in ranks],
+                dofs=ranks[0]["dofs"])
+
+
+def phase_ranks(report: dict) -> dict:
+    """11a: the ss.cpp tank of 9b over 4 gloo ranks on the card against the
+    stacked 4-shard run; 11b: the leaning tank over 3 ranks."""
+    dims, sizes = _tank_dims()
+    # a stable dt (T/40): at the protocol's T/10 the state grows
+    # (ROADMAP C-known 5), so two valid runs whose inner solves exit one
+    # iteration apart drift past 1e-10 of max|y| within two steps; from
+    # the closer warm start of T/40, rz0 * 1e-24 lies below the float64
+    # outer loop's floor, so r.z <= rz0 * 1e-20
+    kw = {**CFG, "cg_rtol_sq": 1e-20, "nsteps": ACCURACY_STEPS}
+    out = {"11a": _ranks_vs_stacked("11a", kw, RANK_SHARDS, RANK_STEPS,
+                                    None, "sep_apply_shard")}
+    _check_no_descendants("after 11a")
+    lean = {"fn": "lpfem_torch.experiments.leaning_tank:leaning_tank",
+            "kwargs": dict(nx=dims[0], ny=dims[1], nz=dims[2], Lx=sizes[0],
+                           Ly=sizes[1], Lz=sizes[2],
+                           ref_levels=CFG["ref_levels"], lean="z")}
+    out["11b"] = _ranks_vs_stacked("11b", {**kw, **LEAN}, RANK_LEAN_SHARDS, 1,
+                                   lean, "lattice_affine_apply_shard")
+    _check_no_descendants("after phase 11")
+    report["ranks"] = out
+    return out
+
+
 def main() -> int:
     import warnings
     # torch's notes that sparse CSR is beta / unchecked (the yardsticks)
@@ -3084,6 +3261,7 @@ def main() -> int:
     timed("10e native and io", phase_native_io)
     timed("10f glvis", phase_glvis)
     timed("10g drivers", phase_new_drivers)
+    ranks = timed("11 ranks", phase_ranks)
     report["total_s"] = time.perf_counter() - t_start
     element_orders = {
         "pa_apply_element": set(report["diffraction"]["float64"][
@@ -3153,6 +3331,8 @@ def main() -> int:
              replaces="lpfem/kernels/sep_apply.py:238",
              launches=shard["launches"]["sep_apply_shard"],
              launches_per_step_by_p=shard["b1_shard_calls_per_step_by_p"],
+             launches_under_ranks=ranks["11a"]["launches"],
+             launches_per_step_under_ranks=ranks["11a"]["launches_per_step"],
              window=shard_k["sep_apply_shard"]["window_dofs"],
              launches_per_apply=shard_k["sep_apply_shard"][
                  "launches_per_apply"],
@@ -3161,10 +3341,13 @@ def main() -> int:
              source="lpfem_torch/csrc/lattice_apply.cu",
              replaces="lpfem/kernels/lattice_apply.py:245",
              launches=lean["launches"]["lattice_affine_apply_shard"],
+             launches_under_ranks=ranks["11b"]["launches"],
+             launches_per_step_under_ranks=ranks["11b"]["launches_per_step"],
              window=shard_k["lattice_affine_apply_shard"]["window_dofs"],
              launches_per_apply=shard_k["lattice_affine_apply_shard"][
                  "launches_per_apply"],
              **{k: shard_k["lattice_affine_apply_shard"][k] for k in keys})]}
+    _check_no_descendants("before the last line")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,10 @@ reader can find each counterpart:
     problem    Config (+ mesh) -> operators -> time loop
     shard      the sharded solver: z-slab / owner-major partitions, the halo
                exchange, B1's and B2's shard modes, the sharded
-               p-multigrid and RK4 loop, shards stacked on one device
+               p-multigrid and RK4 loop, shards stacked on one device or
+               one per rank of a process group (GroupComm)
+    dist       shards as processes: the rank launcher (run_ranks), the
+               rank's group (rank_group), the rank program (run_spec)
     io         VTU / PVD output, data files, checkpoints (NumPy)
     profiling  phase timer, torch.profiler trace, finite-state check
     bench      the headline benchmark (``python -m lpfem_torch.bench``)
@@ -46,6 +49,9 @@ reader can find each counterpart:
     experiments.pf_run         any preset, with ParaView output and
                                checkpoint / resume
     experiments.scaling        strong / weak scaling over the shard count
+                               (--processes: the shards as gloo ranks)
+    experiments.cold_iters     the cold solve's iterations against the
+                               smoother bounds (lambda_max) it is given
 
 Device and dtype policy: every constructor takes an explicit ``device``;
 ``dtype="mixed"`` keeps the state and the outer residual in float64 and runs

@@ -17,7 +17,8 @@ top (free surface) = 2, cylinder wall = 3, all other walls/bottom/symmetry
 plane = 1 (natural zero-Neumann, so their exact attr is inert; the lateral
 absorber zone is driven by y-coordinates, not attrs).
 
-Gmsh meshes (``lpfem.mesh.load_gmsh``) are not ported yet (ROADMAP A8).
+A Gmsh file of the tank goes through ``lpfem_torch.mesh.load_gmsh`` and
+``set_curvature`` instead (``experiments.diffraction --gmsh``).
 """
 
 from __future__ import annotations

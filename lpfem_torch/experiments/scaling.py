@@ -15,6 +15,11 @@ overheads, not a speed-up across devices.
 - weak: the mesh family 32/64/64/128 x 2 x 8/8/16/16 paired with shards
   1/2/4/8 (``ws.cpp:116-128``).
 
+With ``--processes`` each row's shards run as the ranks of a gloo process
+group on the device (``lpfem_torch.dist.run_ranks``: one process per shard,
+the exchange through the host), the twin of lpfem's mesh of devices; rank
+0 reports the row. The stacked mode stays the default.
+
 Each row: the dofs, the median wall, dof x solves per second, the inner CG
 iterations of a cold solve (zero warm start), whether every timed stage
 converged, the exchange (``ppermute``-style neighbour shifts or ``psum``)
@@ -26,22 +31,27 @@ inter-chip times are not ported. The table goes to
     python -m lpfem_torch.experiments.scaling --mode strong --shards 1 2 4 \\
         --orders 4 --par-ref 2 --precond pmg --repeats 1
     python -m lpfem_torch.experiments.scaling --mode weak --device cpu
+    python -m lpfem_torch.experiments.scaling --shards 2 3 --orders 2 \\
+        --processes --device cpu --steps 1 --repeats 1
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import statistics
 import time
 
 __all__ = ["WEAK_MESHES", "run_row", "main"]
 
 WEAK_MESHES = {1: (32, 2, 8), 2: (64, 2, 8), 4: (64, 2, 16), 8: (128, 2, 16)}
+RANK_TIMEOUT_S = 1800.0          # a row's ranks (--processes)
 
 
-def run_row(args, order: int, ns: int) -> dict:
+def run_row(args, order: int, ns: int, comm=None) -> dict:
     """One row: build the sharded problem, a cold solve, a warm-up step,
-    then ``args.repeats`` timed runs of ``args.steps`` RK4 steps."""
+    then ``args.repeats`` timed runs of ``args.steps`` RK4 steps; over the
+    process group of ``comm`` (a ``shard.GroupComm``) where given."""
     import numpy as np
 
     from ..configs import preset
@@ -65,7 +75,7 @@ def run_row(args, order: int, ns: int) -> dict:
     cfg = preset("scaling_base", **kw)
     t0 = time.perf_counter()
     prob = Problem(cfg, args.device, build_precond=False)
-    sprob = ShardedProblem(prob, ns)
+    sprob = ShardedProblem(prob, ns, comm=comm)
     setup = time.perf_counter() - t0
     y0, phi0 = sprob.initial_state()
     ns_surf = sprob.NSurf
@@ -98,7 +108,37 @@ def run_row(args, order: int, ns: int) -> dict:
                 total_iters=stats.total_iters, exchange=lv.exchange,
                 NS=lv.NS, halo_B_per_apply=halo_bytes, walls=walls,
                 layout="window" if sprob.pt.win is not None else "compact",
-                eta_abs_max=float(y[:ns_surf].abs().max()))
+                eta_abs_max=float(y[:ns_surf].abs().max()),
+                processes=comm is not None)
+
+
+def _rank_argv(args, order: int, ns: int) -> list[str]:
+    """The rank program's command line for one row."""
+    argv = ["-m", "lpfem_torch.experiments.scaling", "--as-rank",
+            "--mode", args.mode, "--shards", str(ns), "--orders", str(order),
+            "--steps", str(args.steps), "--par-ref", str(args.par_ref),
+            "--repeats", str(args.repeats), "--rtol-sq", repr(args.rtol_sq),
+            "--max-iter", str(args.max_iter), "--dtype", args.dtype,
+            "--precond", args.precond, "--device", args.device]
+    if args.cheb_degree is not None:
+        argv += ["--cheb-degree", str(args.cheb_degree)]
+    return argv
+
+
+def run_row_ranks(args, order: int, ns: int) -> dict:
+    """One row over ``ns`` ranks (``lpfem_torch.dist.run_ranks``); rank 0
+    prints the row as the last line of its output."""
+    from ..dist import run_ranks
+    outs = run_ranks(_rank_argv(args, order, ns), ns, RANK_TIMEOUT_S)
+    return json.loads(outs[0].strip().splitlines()[-1])
+
+
+def _rank(args) -> None:
+    from ..dist import rank_group
+    with rank_group() as comm:
+        row = run_row(args, args.orders[0], args.shards[0], comm)
+        if comm.rank == 0:
+            print(json.dumps(row), flush=True)
 
 
 def main(argv=None) -> list[dict]:
@@ -125,7 +165,14 @@ def main(argv=None) -> list[dict]:
                     help="smoother degree (default: the preset's)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--processes", action="store_true",
+                    help="run each row's shards as ranks of a gloo group")
+    ap.add_argument("--as-rank", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.as_rank:
+        _rank(args)
+        return []
 
     from ..io import DataFile
 
@@ -136,7 +183,8 @@ def main(argv=None) -> list[dict]:
     rows = []
     for order in args.orders:
         for ns in args.shards:
-            r = run_row(args, order, ns)
+            r = (run_row_ranks(args, order, ns) if args.processes
+                 else run_row(args, order, ns))
             rows.append(r)
             df.append(r["mode"], order, r["par_ref"], ns, r["dofs"],
                       args.dtype, args.rtol_sq, args.precond, r["layout"],
@@ -147,7 +195,9 @@ def main(argv=None) -> list[dict]:
                   f"layout={r['layout']} median={r['median_wall_s']:.3f}s "
                   f"cold_iters={r['cold_iters']} converged={r['converged']} "
                   f"exchange={r['exchange']} NS={r['NS']} "
-                  f"halo_B/apply={r['halo_B_per_apply']}", flush=True)
+                  f"halo_B/apply={r['halo_B_per_apply']} "
+                  f"processes={r['processes']} setup={r['setup_s']:.2f}s",
+                  flush=True)
     print(f"table -> {out}")
     return rows
 

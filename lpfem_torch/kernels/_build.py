@@ -18,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 from pathlib import Path
 
@@ -54,28 +55,46 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _kill_group(proc: subprocess.Popen) -> None:
+    """Kill a compile and what it started (its own process group)."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+
+
 def build_libraries(names) -> dict[str, str]:
     """Compile every missing ``csrc/<name>.cu`` with one nvcc process per
     source, all started together; returns nvcc's output per name (its
-    register / spill report when ``-Xptxas -v`` is in ``NVCC_FLAGS``)."""
+    register / spill report when ``-Xptxas -v`` is in ``NVCC_FLAGS``).
+    When one compile fails, the others are killed (each nvcc with the
+    compilers it started) and waited on before the error is raised."""
     procs = {}
-    for name in names:
-        lib_path = _lib_path(name)
-        if lib_path.exists() or name in procs:
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, lib_path)
     out = {}
-    for name, (proc, tmp, lib_path) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{text}")
-        os.replace(tmp, lib_path)
-        out[name] = text
+    try:
+        for name in names:
+            lib_path = _lib_path(name)
+            if lib_path.exists() or name in procs:
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                process_group=0), tmp, lib_path)
+        for name, (proc, tmp, lib_path) in procs.items():
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{text}")
+            os.replace(tmp, lib_path)
+            out[name] = text
+    finally:
+        for proc, tmp, _ in procs.values():
+            if proc.returncode is None:     # not reaped: another one failed
+                _kill_group(proc)
+                proc.communicate()
+            tmp.unlink(missing_ok=True)
     return out
 
 

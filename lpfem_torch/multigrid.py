@@ -32,11 +32,11 @@ __all__ = ["ChebyshevSmoother", "PMultigrid", "estimate_lmax"]
 
 
 def estimate_lmax(apply_fn, inv_diag: torch.Tensor, iters: int = 20,
-                  safety: float = 1.1) -> float:
+                  safety: float = 1.1, seed: int = 0) -> float:
     """Power-iteration estimate of lambda_max(D^-1 A) times ``safety``
     (MFEM's ``OperatorChebyshevSmoother`` does the same), from a start
-    vector drawn on the host with seed 0."""
-    gen = torch.Generator(device="cpu").manual_seed(0)
+    vector drawn on the host with ``seed``."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
     v = torch.randn(inv_diag.shape[0], generator=gen, dtype=torch.float64)
     v = v.to(device=inv_diag.device, dtype=inv_diag.dtype)
     lam = torch.ones((), dtype=inv_diag.dtype, device=inv_diag.device)

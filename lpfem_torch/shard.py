@@ -36,14 +36,23 @@ tables on the host and places them on the device).
 
 Under ``apply_mode="assembled"`` the fine level is the ELL level
 (``ShardedLevel(..., ell=True)``): each shard's partial assembly over its
-local layout, applied through the same exchange. Not ported: shards on
-several devices (the leading axis as a ``DTensor`` over an NCCL group;
-ROADMAP A6b).
+local layout, applied through the same exchange.
+
+Shards as processes: under a :class:`GroupComm` (one shard per rank of an
+initialised ``torch.distributed`` group; ``lpfem_torch.dist`` launches the
+ranks) every rank builds the same host tables and keeps its own row, so a
+sharded vector is ``[1, N_max+1]`` and every stacked code path keeps its
+shapes. The exchange then takes the collectives (``psum`` an all-reduce,
+``shift`` one send / receive pair per direction) in place of the compiled
+routes, which index across every shard's lanes; the lattice kernels' shard
+modes take the rank's one window. NCCL with one rank per card is not
+ported (it needs two or more cards).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 
 import numpy as np
@@ -65,8 +74,8 @@ from .solvers import pcg, pcg_ir
 from .surface import SolveCarry, SolveStats
 from .timestep import rk4_run
 
-__all__ = ["ShardComm", "Partition", "ShardedExchange", "ShardedLevel",
-           "ShardedPMG", "ShardedProblem"]
+__all__ = ["ShardComm", "GroupComm", "Partition", "ShardedExchange",
+           "ShardedLevel", "ShardedPMG", "ShardedProblem"]
 
 
 def _zslab_layers(part: np.ndarray, elem_dims, ndev: int):
@@ -112,14 +121,23 @@ def _top_plane(space) -> np.ndarray:
 
 class ShardComm:
     """The collectives of ``lpfem.shard`` over shards stacked on the leading
-    axis: the one place a later multi-device version replaces (an
-    all-reduce and point-to-point sends over a process group)."""
+    axis of tensors on one device. :class:`GroupComm` is its twin over a
+    process group. ``rows`` shards, from shard ``first`` on, are held by
+    this process: every shard here."""
+
+    stacked = True
 
     def __init__(self, ndev: int):
         self.ndev = ndev
+        self.rows = ndev
+        self.first = 0
+
+    def local(self, arr):
+        """The rows of a host table ``[ndev, ...]`` held by this process."""
+        return arr[self.first:self.first + self.rows]
 
     def psum(self, buf: torch.Tensor) -> torch.Tensor:
-        """``[ndev, ...]`` -> ``[...]``: the sum over shards, which every
+        """``[rows, ...]`` -> ``[...]``: the sum over shards, which every
         shard reads (``jax.lax.psum``)."""
         return buf.sum(0)
 
@@ -145,6 +163,148 @@ class ShardComm:
         """The dot of two sharded vectors (lpfem's ``pdot``, the psum of
         per-shard dots): on stacked shards one dot over every lane."""
         return torch.dot(a.reshape(-1), b.reshape(-1))
+
+    def all_true(self, flag: torch.Tensor) -> torch.Tensor:
+        """A boolean flag of this process -> true iff it holds on every
+        shard."""
+        return flag
+
+
+def _peers(kind: str, r: int, n: int) -> tuple:
+    """(rank sent to, rank received from) of rank ``r`` of ``n`` under
+    lpfem's permutation ``kind``; ``None`` for no peer."""
+    last = n - 1
+    if kind == "fwd":                    # owner d -> toucher d+1
+        return (r + 1 if r < last else None, r - 1 if r > 0 else None)
+    if kind == "fwd_rev":
+        return (r - 1 if r > 0 else None, r + 1 if r < last else None)
+    if kind == "wrap":                   # owner 0 -> toucher ndev-1
+        return (last if r == 0 else None, 0 if r == last else None)
+    if kind == "wrap_rev":
+        return (0 if r == last else None, last if r == 0 else None)
+    raise ValueError(f"unknown permutation {kind!r}")
+
+
+class GroupComm(ShardComm):
+    """:class:`ShardComm` over the initialised default ``torch.distributed``
+    process group, one shard per rank: each rank holds its shard as a
+    leading axis of length 1. ``psum`` and ``pdot`` are a sum
+    ``all_reduce``; ``shift`` is one send / receive pair per rank, posted
+    together
+    (``batch_isend_irecv``) under lpfem's permutations. Every collective
+    is staged through host tensors (pinned, for CUDA tensors): gloo is
+    handed no CUDA tensor. The blocking copy to the host orders each
+    collective after the device work that made its input.
+
+    ``calls`` counts the collectives by kind; with ``timing`` set, CUDA
+    events (the host clock on the CPU) bracket each one, from its copy to
+    the host to its copy back, and :meth:`exchange_seconds` sums them."""
+
+    stacked = False
+
+    def __init__(self, timing: bool = False):
+        import torch.distributed as dist
+        self._dist = dist
+        self.ndev = dist.get_world_size()
+        self.rank = dist.get_rank()
+        self.rows, self.first = 1, self.rank
+        self.timing = timing
+        self.calls: dict[str, int] = {}
+        self._spans: list = []
+        self._host_s = 0.0
+
+    # ---------------------------------------------------------- staging
+    def _begin(self, kind: str, like: torch.Tensor):
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        if not self.timing:
+            return None
+        if like.is_cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def _end(self, start) -> None:
+        if start is None:
+            return
+        if isinstance(start, float):
+            self._host_s += time.perf_counter() - start
+        else:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._spans.append((start, ev))
+
+    def exchange_seconds(self) -> float:
+        """Seconds inside the collectives since the last call (``timing``
+        only): device time from each collective's copy to the host to its
+        copy back, during which the rank's stream waits."""
+        s = self._host_s
+        if self._spans:
+            self._spans[-1][1].synchronize()
+            s += sum(a.elapsed_time(b) for a, b in self._spans) / 1e3
+        self._spans, self._host_s = [], 0.0
+        return s
+
+    @staticmethod
+    def _to_host(t: torch.Tensor) -> torch.Tensor:
+        if t.is_cuda:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t)
+            return h
+        return t.detach().clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def _back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        return h.to(like.device, non_blocking=True) if like.is_cuda else h
+
+    def _all_reduce(self, t: torch.Tensor, kind: str, op=None):
+        start = self._begin(kind, t)
+        h = self._to_host(t)
+        self._dist.all_reduce(h, op=op or self._dist.ReduceOp.SUM)
+        out = self._back(h, t)
+        self._end(start)
+        return out
+
+    # ------------------------------------------------------ collectives
+    def psum(self, buf: torch.Tensor) -> torch.Tensor:
+        return self._all_reduce(buf[0], "psum")
+
+    def shift(self, send: torch.Tensor, kind: str) -> torch.Tensor:
+        dst, src = _peers(kind, self.rank, self.ndev)
+        start = self._begin(kind, send)
+        h = self._to_host(send)
+        recv = torch.zeros_like(h)
+        dist = self._dist
+        ops = []
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, h, dst))
+        if src is not None:
+            ops.append(dist.P2POp(dist.irecv, recv, src))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        out = self._back(recv, send)
+        self._end(start)
+        return out
+
+    def pdot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self._all_reduce(torch.dot(a.reshape(-1), b.reshape(-1)),
+                                "pdot")
+
+    def all_true(self, flag: torch.Tensor) -> torch.Tensor:
+        return self._all_reduce(flag.to(torch.int32), "flag",
+                                self._dist.ReduceOp.MIN) > 0
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor | None:
+        """Every rank's row of ``x`` stacked ``[ndev, ...]`` on rank 0
+        (host memory); ``None`` on the others."""
+        start = self._begin("gather", x)
+        h = self._to_host(x)
+        parts = ([torch.empty_like(h) for _ in range(self.ndev)]
+                 if self.rank == 0 else None)
+        self._dist.gather(h, parts, dst=0)
+        self._end(start)
+        return None if parts is None else torch.cat(parts)
 
 
 class Partition:
@@ -342,21 +502,30 @@ class ShardedExchange:
     shifts (lpfem's ``ppermute``) where every interface dof is shared by
     two ring-adjacent shards, else the ``psum`` of the interface buffer;
     ``"ppermute"`` / ``"psum"`` force one (``"ppermute"`` raises where it
-    does not apply)."""
+    does not apply).
+
+    The device tables hold the ``comm.rows`` rows of this process: every
+    shard's on stacked shards, where the exchange is compiled into one
+    gather and one indexed add; a rank's own under a :class:`GroupComm`,
+    where it runs the collectives."""
 
     def __init__(self, pt: Partition, comm: ShardComm, device,
                  exchange: str = "auto"):
         if exchange not in ("auto", "ppermute", "psum"):
             raise ValueError(f"unknown shard_exchange {exchange!r}")
+        if comm.ndev != pt.ndev:
+            raise ValueError(f"{comm.ndev} shards for a partition over "
+                             f"{pt.ndev}")
         self.pt = pt
         self.comm = comm
         self.device = torch.device(device)
         self.ndev = pt.ndev
+        self.rows = comm.rows
         # the halo segment is padded to >= 1 (a single shard has none)
         self.N_max, self.H_max, self.NS = pt.N_max, max(pt.H_max, 1), pt.NS
-        self.oip = _index(pt.own_if_pos, device)
-        self.oil = _index(pt.own_if_loc, device)
-        self.hp = _index(pt.halo_pos, device)
+        self.oip = self._table(pt.own_if_pos)
+        self.oil = self._table(pt.own_if_loc)
+        self.hp = self._table(pt.halo_pos)
         self.exchange = "psum"
         if exchange in ("auto", "ppermute") and self._build_neighbor_tables():
             self.exchange = "ppermute"
@@ -366,9 +535,15 @@ class ShardedExchange:
         self.win = pt.win
         if self.win is not None:
             self._check_window()
-        self._compile_routes()
+        self._halo_route = self._loc_route = self._add_route = None
+        if comm.stacked:
+            self._compile_routes()
         self._etab = None
         self.invm = None
+
+    def _table(self, arr) -> torch.Tensor:
+        """This process's rows of a host index table, on the device."""
+        return _index(self.comm.local(np.asarray(arr)), self.device)
 
     def _check_window(self) -> None:
         """The window layout's halo must be exactly plane 0 in plane order
@@ -455,28 +630,35 @@ class ShardedExchange:
             hw = np.sort(halo_ids[np.isin(halo_ids, ids_w)])
             hs_w[d, : len(hw)] = slot[hw]
         self.Wf, self.Ww = Wf, Ww
+        self._wrap = len(ids_w) > 0          # else the wrap rows are padding
         self.nbr = {"gslf": gsl_f.astype(np.int32),
                     "gslw": gsl_w.astype(np.int32),
                     "hr": hr.astype(np.int32), "hsf": hs_f.astype(np.int32),
                     "hsw": hs_w.astype(np.int32)}
-        dev = self.device
-        self.gslf, self.gslw = _index(gsl_f, dev), _index(gsl_w, dev)
-        self.hr = _index(hr, dev)
-        self.hsf, self.hsw = _index(hs_f, dev), _index(hs_w, dev)
+        self.gslf, self.gslw = self._table(gsl_f), self._table(gsl_w)
+        self.hr = self._table(hr)
+        self.hsf, self.hsw = self._table(hs_f), self._table(hs_w)
         return True
 
     # ------------------------------------------------ the collectives
+    def _shift_wrap(self, send: torch.Tensor, kind: str) -> torch.Tensor:
+        """The wrap seam's shift; zeros without a sent value where no dof
+        crosses the seam (every row of its tables is padding)."""
+        if self._wrap:
+            return self.comm.shift(send, kind)
+        return torch.zeros_like(send)
+
     def _gather_halo_collective(self, x: torch.Tensor) -> torch.Tensor:
-        """``[ndev, H_max]``: every shard's halo values in halo-id order, the
+        """``[rows, H_max]``: every shard's halo values in halo-id order, the
         owner-broadcast direction, through :class:`ShardComm` as lpfem's
         ``gather_halo`` (``lpfem/shard.py:478-491``)."""
         comm = self.comm
         if self.exchange == "ppermute":
             rf = comm.shift(x.gather(1, self.gslf), "fwd")
-            rw = comm.shift(x.gather(1, self.gslw), "wrap")
-            buf = torch.cat([rf, rw, x.new_zeros(self.ndev, 1)], dim=1)
+            rw = self._shift_wrap(x.gather(1, self.gslw), "wrap")
+            buf = torch.cat([rf, rw, x.new_zeros(self.rows, 1)], dim=1)
             return buf.gather(1, self.hr)
-        buf = x.new_zeros(self.ndev, self.NS + 1)
+        buf = x.new_zeros(self.rows, self.NS + 1)
         buf.scatter_(1, self.oip, x.gather(1, self.oil))
         return comm.psum(buf)[self.hp]
 
@@ -487,13 +669,13 @@ class ShardedExchange:
         (``lpfem/shard.py:497-512``); a new tensor, trash lane 0."""
         comm = self.comm
         if self.exchange == "ppermute":
-            yh = torch.cat([y_halo, y_halo.new_zeros(self.ndev, 1)], dim=1)
+            yh = torch.cat([y_halo, y_halo.new_zeros(self.rows, 1)], dim=1)
             rf = comm.shift(yh.gather(1, self.hsf), "fwd_rev")
-            rw = comm.shift(yh.gather(1, self.hsw), "wrap_rev")
+            rw = self._shift_wrap(yh.gather(1, self.hsw), "wrap_rev")
             y = y_own.scatter_add(1, self.gslf, rf)
             y.scatter_add_(1, self.gslw, rw)
         else:
-            buf = y_halo.new_zeros(self.ndev, self.NS + 1)
+            buf = y_halo.new_zeros(self.rows, self.NS + 1)
             buf.scatter_add_(1, self.hp, y_halo)
             y = y_own.scatter_add(1, self.oil, comm.psum(buf)[self.oip])
         y[:, self.N_max] = 0.0
@@ -534,8 +716,18 @@ class ShardedExchange:
 
     # ------------------------------------------------------- the exchange
     def gather_halo(self, x: torch.Tensor) -> torch.Tensor:
-        """``[ndev, H_max]``: every shard's halo values in halo-id order."""
+        """``[rows, H_max]``: every shard's halo values in halo-id order."""
+        if self._halo_route is None:
+            return self._gather_halo_collective(x)
         return x.reshape(-1)[self._halo_route]
+
+    def gather_loc(self, x: torch.Tensor) -> torch.Tensor:
+        """``[rows, N_max+1 + H_max + 1]``: each shard's local layout
+        ``[own, trash, halo, zero]`` (lpfem's ``gather_loc``)."""
+        if self._loc_route is not None:
+            return x.reshape(-1)[self._loc_route]
+        return torch.cat([x, self.gather_halo(x),
+                          x.new_zeros(self.rows, 1)], dim=1)
 
     def assemble_halo(self, y_own: torch.Tensor,
                       y_halo: torch.Tensor) -> torch.Tensor:
@@ -554,17 +746,18 @@ class ShardedExchange:
         only where a shard does not own its plane 0)."""
         if self.H_max >= self.win["plane"]:
             return self.gather_halo(x)
-        return x.new_zeros(self.ndev, self.win["plane"])   # a single shard
+        return x.new_zeros(self.rows, self.win["plane"])   # a single shard
 
     def window(self, x: torch.Tensor) -> torch.Tensor:
         """The materialised windows ``[ndev, Dz_win, Dy, Dx]``: each owned
         block with the exchanged halo plane as plane 0 where the shard does
         not own it (``lpfem/shard.py:529-536``)."""
         w = self.win
-        xw = x[:, : self.N_max].reshape(self.ndev, w["Dz_win"], w["Dy"],
+        xw = x[:, : self.N_max].reshape(self.rows, w["Dz_win"], w["Dy"],
                                         w["Dx"]).clone()
         p0 = self.halo_plane(x)[:, : w["plane"]]
-        xw[1:, 0] = p0[1:].view(-1, w["Dy"], w["Dx"])
+        lo = max(1 - self.comm.first, 0)        # rows of shards 1..ndev-1
+        xw[lo:, 0] = p0[lo:].view(-1, w["Dy"], w["Dx"])
         return xw
 
     def unwindow(self, y3: torch.Tensor) -> torch.Tensor:
@@ -572,25 +765,33 @@ class ShardedExchange:
         goes to the lower neighbour (shard 0 owns its own), the rest is the
         owned block (``lpfem/shard.py:538-550``)."""
         plane = self.win["plane"]
-        flat = y3.reshape(self.ndev, -1)
-        y_own = torch.cat([flat, flat.new_zeros(self.ndev, 1)], dim=1)
-        y_halo = flat.new_zeros(self.ndev, self.H_max)
+        flat = y3.reshape(self.rows, -1)
+        y_own = torch.cat([flat, flat.new_zeros(self.rows, 1)], dim=1)
+        y_halo = flat.new_zeros(self.rows, self.H_max)
         if self.H_max == plane:                  # more than one shard
-            y_halo[1:] = flat[1:, :plane]
-            y_own[1:, :plane] = 0.0
+            lo = max(1 - self.comm.first, 0)
+            y_halo[lo:] = flat[lo:, :plane]
+            y_own[lo:, :plane] = 0.0
         return self.assemble_halo(y_own, y_halo)
 
     # --------------------------------------------- E-vector gather and fold
     def element_routes(self, led: np.ndarray, counts) -> tuple:
-        """(gather route ``[ndev, E*L]``, fold table ``[ndev*(N_max+1), m]``)
-        of the E-vectors over the local element table ``led [ndev, E, L]``
-        (slots of ``[own, trash, halo, zero]``; the first ``counts[d]``
-        elements of shard d are real). The gather reads each node's lane of
-        the stacked vector, halo nodes through the exchange. The fold gives
-        each owned lane the flat E-vector positions that sum into it: its
-        own copies in element order, then its halo copies on the other
-        shards in shard order (the fold and the exchange in one gather and
-        one sum; padding reads an appended 0)."""
+        """(gather route ``[rows, E*L]``, fold table) of the E-vectors over
+        the local element table ``led [rows, E, L]`` of this process's
+        shards (slots of ``[own, trash, halo, zero]``; the first
+        ``counts[d]`` elements of row d are real), for :meth:`gather_routed`
+        and :meth:`fold`. On stacked shards the gather reads each node's
+        lane of the stacked vector, halo nodes through the exchange, and the
+        fold table ``[ndev*(N_max+1), m]`` gives each owned lane the flat
+        E-vector positions that sum into it: its own copies in element
+        order, then its halo copies on the other shards in shard order (the
+        fold and the exchange in one gather and one sum; padding reads an
+        appended 0). Under a process group the gather reads the local layout
+        (:meth:`gather_loc`) and the table ``[rows*Nloc, m]`` folds onto it;
+        :meth:`fold` then adds the halo rows onto their owners (lpfem's
+        ``assemble_own``)."""
+        if not self.comm.stacked:
+            return self._element_routes_local(led, counts)
         ndev, E, L = led.shape
         N1 = self.N_max + 1
         nloc = N1 + self.H_max + 1
@@ -625,25 +826,52 @@ class ShardedExchange:
         table[tgt, np.arange(len(tgt)) - start[tgt]] = ent
         return _index(gidx, self.device), _index(table, self.device)
 
+    def _element_routes_local(self, led: np.ndarray, counts) -> tuple:
+        rows, E, L = led.shape
+        nloc = self.N_max + 1 + self.H_max + 1
+        gidx = led.reshape(rows, -1) + nloc * np.arange(rows)[:, None]
+        tabs = []
+        for d in range(rows):
+            c = int(counts[d])
+            t = _fold_table(led[d, :c], nloc)
+            tabs.append(np.where(t < c * L, t + d * E * L, rows * E * L))
+        m = max(t.shape[1] for t in tabs)
+        table = np.concatenate([np.pad(t, ((0, 0), (0, m - t.shape[1])),
+                                       constant_values=rows * E * L)
+                                for t in tabs])
+        return _index(gidx, self.device), _index(table, self.device)
+
     def _elem_tables(self):
         if self._etab is None:
             pt = self.pt
             self._etab = self.element_routes(
-                pt.local_elem_dofs.astype(np.int64),
-                [len(es) for es in pt.elems_of])
+                self.comm.local(pt.local_elem_dofs.astype(np.int64)),
+                self.comm.local([len(es) for es in pt.elems_of]))
         return self._etab
 
+    def gather_routed(self, x: torch.Tensor,
+                      gidx: torch.Tensor) -> torch.Tensor:
+        """The values of ``x [rows, N_max+1]`` at a gather route of
+        :meth:`element_routes`."""
+        src = x if self.comm.stacked else self.gather_loc(x)
+        return src.reshape(-1)[gidx]
+
     def gather_E(self, x: torch.Tensor) -> torch.Tensor:
-        """``[ndev, N_max+1]`` -> E-vectors ``[ndev, E_max, L]`` (one
+        """``[rows, N_max+1]`` -> E-vectors ``[rows, E_max, L]`` (one
         gather)."""
         gidx, _ = self._elem_tables()
-        return x.reshape(-1)[gidx].view(self.ndev, self.pt.E_max, -1)
+        return self.gather_routed(x, gidx).view(self.rows, self.pt.E_max, -1)
 
     def fold(self, ye: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-        """E-vectors -> the assembled ``[ndev, N_max+1]`` through a fold
+        """E-vectors -> the assembled ``[rows, N_max+1]`` through a fold
         table of :meth:`element_routes`."""
         yp = F.pad(ye.reshape(-1), (0, 1))
-        return yp[table].sum(-1).view(self.ndev, self.N_max + 1)
+        if self.comm.stacked:
+            return yp[table].sum(-1).view(self.ndev, self.N_max + 1)
+        n1 = self.N_max + 1
+        y = yp[table].sum(-1).view(self.rows, -1)
+        return self.assemble_halo(y[:, :n1].contiguous(),
+                                  y[:, n1:n1 + self.H_max])
 
     def assemble_E(self, ye: torch.Tensor) -> torch.Tensor:
         """E-vectors -> the assembled sharded vector (transpose of
@@ -720,7 +948,9 @@ class ShardedLevel(ShardedExchange):
         mstack[:, pt.N_max] = 1.0
 
         def put(a):
-            return torch.as_tensor(np.asarray(a).astype(npdt), device=device)
+            """This process's rows of a host table ``[ndev, ...]``."""
+            return torch.as_tensor(comm.local(np.asarray(a)).astype(npdt),
+                                   device=device)
 
         self.ess = put(pt.stack_dof(ess_mask))
         self.free = 1.0 - self.ess
@@ -759,8 +989,8 @@ class ShardedLevel(ShardedExchange):
         c = np.stack([zt, own0], axis=1)
         o = np.stack([np.full(self.ndev, -1, np.int32), own0], axis=1)
         check_scal(c, w["Dz_win"])
-        self.scal_c = torch.as_tensor(c, device=self.device)
-        self.scal_o = torch.as_tensor(o, device=self.device)
+        self.scal_c = torch.as_tensor(self.comm.local(c), device=self.device)
+        self.scal_o = torch.as_tensor(self.comm.local(o), device=self.device)
 
     def _slab_rows(self, arr: np.ndarray, per_layer: int) -> np.ndarray:
         """``[nez * per_layer, ...]`` -> ``[ndev, nez_loc * per_layer, ...]``:
@@ -791,7 +1021,7 @@ class ShardedLevel(ShardedExchange):
         op, w = self.op, self.pt.win
         nex, ney, _ = w["dims"]
         C6 = self._slab_rows(np.asarray(op.C64, dtype=np.float64), nex * ney)
-        self.C6 = put(C6.reshape(-1, 6))
+        self.C6 = put(C6).reshape(-1, 6)
         self.w3, self.B, self.D = (t.detach().to(self.device)
                                    for t in (op.w3, op.B, op.D))
 
@@ -799,21 +1029,23 @@ class ShardedLevel(ShardedExchange):
         op, pt = self.op, self.pt
         sp = op.space
         b = basis_1d(op.p, op.q)
-        self.B, self.D = put(b.B), put(b.D)
+        self.B, self.D = (torch.as_tensor(t.astype(npdt), device=self.device)
+                          for t in (b.B, b.D))
         C6 = op.C64 if isinstance(op, ElementLaplace) else affine_c6(
             sp, op.q, npdt)
         if isinstance(op, ElementLaplace) and C6 is None:
             G = op.G64                                      # [ne, Q, 6]
             G6q = G.transpose(0, 2, 1).reshape(G.shape[0], -1)
-            self.G6q = put(pt.stack_elem(G6q).reshape(-1, G6q.shape[1]))
+            self.G6q = put(pt.stack_elem(G6q)).reshape(-1, G6q.shape[1])
             self.C6 = None
         else:
             if C6 is None:
                 raise ValueError("a level without element tables needs "
                                  "affine elements")
-            self.C6 = put(pt.stack_elem(np.asarray(C6)).reshape(-1, 6))
-            self.w3 = put(np.einsum("c,b,a->cba", b.qwts, b.qwts,
-                                    b.qwts).reshape(-1))
+            self.C6 = put(pt.stack_elem(np.asarray(C6))).reshape(-1, 6)
+            self.w3 = torch.as_tensor(np.einsum(
+                "c,b,a->cba", b.qwts, b.qwts, b.qwts).reshape(-1).astype(
+                    npdt), device=self.device)
 
     def _init_ell(self) -> None:
         """The stacked partial assemblies: shard d's element matrices over
@@ -822,20 +1054,21 @@ class ShardedLevel(ShardedExchange):
         the operator's device and placed on the level's."""
         pt = self.pt
         nloc = self.N_max + 1 + self.H_max + 1
-        led = pt.local_elem_dofs.astype(np.int64)
+        led = self.comm.local(pt.local_elem_dofs.astype(np.int64))
+        elems_of = self.comm.local(pt.elems_of)
         elems = np.concatenate([np.asarray(es, dtype=np.int64)
-                                for es in pt.elems_of])
+                                for es in elems_of])
         rows = np.concatenate([d * nloc + led[d, :len(es)]
-                               for d, es in enumerate(pt.elems_of)])
+                               for d, es in enumerate(elems_of)])
         self.A = assemble_csr(element_source(self.op), self.dtype,
                               elem_dofs=rows, elems=elems,
-                              n=self.ndev * nloc).to(self.device)
+                              n=self.rows * nloc).to(self.device)
 
     # ------------------------------------------------------------- applies
     def _ell_apply(self, x: torch.Tensor) -> torch.Tensor:
         n1 = self.N_max + 1
-        x_loc = x.reshape(-1)[self._loc_route]                # [ndev, Nloc]
-        y = torch.mv(self.A, x_loc.reshape(-1)).view(self.ndev, -1)
+        x_loc = self.gather_loc(x)                            # [rows, Nloc]
+        y = torch.mv(self.A, x_loc.reshape(-1)).view(self.rows, -1)
         return self.assemble_halo(y[:, :n1], y[:, n1:n1 + self.H_max])
 
     def _window_apply(self, x: torch.Tensor,
@@ -850,7 +1083,7 @@ class ShardedLevel(ShardedExchange):
                 x, self.C6, self.w3, self.B, self.D, w["dims"],
                 (w["periodic"][0], False, False), scal, p0)
         if self.H_max != w["plane"]:                  # a single shard
-            yh = yh.new_zeros(self.ndev, self.H_max)
+            yh = yh.new_zeros(self.rows, self.H_max)
         return self.assemble_halo(y, yh)
 
     def _element_apply(self, x: torch.Tensor) -> torch.Tensor:
@@ -948,8 +1181,8 @@ def _estimate_lmax_sharded(lv: ShardedLevel, iters: int = 20,
     (``lpfem/shard.py:850-872``), from numpy's ``default_rng(0)``."""
     rng = np.random.default_rng(0)
     npdt = np.float32 if lv.dtype == torch.float32 else np.float64
-    v = torch.as_tensor(lv.pt.stack_dof(
-        rng.standard_normal(len(lv.pt.owner)).astype(npdt)), device=lv.device)
+    v = torch.as_tensor(lv.comm.local(lv.pt.stack_dof(
+        rng.standard_normal(len(lv.pt.owner)).astype(npdt))), device=lv.device)
     lam = torch.ones((), dtype=lv.dtype, device=lv.device)
     for _ in range(iters):
         w = lv.apply_c(v) * lv.invd
@@ -1082,8 +1315,8 @@ class ShardedPMG:
             via = ShardedExchange(pt_via, comm, device)
             mstack = pt_via.stack_dof(_node_mult(hs), fill=1.0)
             mstack[:, pt_via.N_max] = 1.0
-            via.invm = torch.as_tensor(1.0 / mstack).to(device=device,
-                                                        dtype=dtype)
+            via.invm = torch.as_tensor(1.0 / comm.local(mstack)).to(
+                device=device, dtype=dtype)
             self.transfers.append(_ShardedTransfer(I3(1, 2), bot, lvl_c,
                                                    via=via))
             self.levels.append(lvl_c)
@@ -1143,10 +1376,16 @@ class ShardedProblem:
 
     ``lmax`` / ``lmax_mode``: the p-multigrid's smoother bounds, as
     :class:`ShardedPMG`. The preconditioner is the sharded p-multigrid
-    under ``precond="pmg"`` (above p = 1), else Jacobi, as lpfem's."""
+    under ``precond="pmg"`` (above p = 1), else Jacobi, as lpfem's.
+
+    ``comm``: a :class:`GroupComm` runs the shards as the ranks of its
+    process group (``n_shards`` its size), each rank with its own row of
+    every table and of the potential; ``y`` stays replicated, the surface
+    values and the non-finite guard ride the collectives."""
 
     def __init__(self, prob, n_shards: int, device=None,
-                 lmax: list[float] | None = None, lmax_mode: str = "host"):
+                 lmax: list[float] | None = None, lmax_mode: str = "host",
+                 comm: ShardComm | None = None):
         cfg = prob.cfg
         _check_supported(cfg)
         self.prob = prob
@@ -1154,7 +1393,10 @@ class ShardedProblem:
                                      else device)
         dev = self.device
         self.ndev = n_shards
-        self.comm = ShardComm(n_shards)
+        self.comm = ShardComm(n_shards) if comm is None else comm
+        if self.comm.ndev != n_shards:
+            raise ValueError(f"{n_shards} shards over a group of "
+                             f"{self.comm.ndev}")
         sp = prob.space
         pt = Partition(sp, n_shards)
         self.pt = pt
@@ -1191,17 +1433,22 @@ class ShardedProblem:
 
     @classmethod
     def from_config(cls, cfg, n_shards: int, device="cuda",
-                    lmax: list[float] | None = None) -> "ShardedProblem":
+                    lmax: list[float] | None = None,
+                    comm: ShardComm | None = None,
+                    mesh=None) -> "ShardedProblem":
         """Set-up on the host, tables placed on ``device``
-        (``lpfem/shard.py:1143-1166``): the problem is built on the CPU
-        without its single-device preconditioner, and the smoother bounds
-        come from power iteration through the sharded operators (unless
-        ``lmax`` is given)."""
+        (``lpfem/shard.py:1143-1166``): the problem (on ``mesh`` where
+        given) is built on the CPU without its single-device
+        preconditioner, and the smoother bounds come from power iteration
+        through the sharded operators (unless ``lmax`` is given). Under a
+        process group every rank builds the same tables (the set-up is
+        deterministic) and keeps its row."""
         from .problem import Problem
         _check_supported(cfg)
-        prob = Problem(cfg, device="cpu", build_precond=False)
+        prob = Problem(cfg, device="cpu", build_precond=False, mesh=mesh)
         return cls(prob, n_shards, device=device, lmax=lmax,
-                   lmax_mode="host" if lmax is not None else "sharded")
+                   lmax_mode="host" if lmax is not None else "sharded",
+                   comm=comm)
 
     # ------------------------------------------------------------- tables
     def _init_zderiv(self, lv: ShardedLevel, ess: np.ndarray) -> None:
@@ -1225,7 +1472,10 @@ class ShardedProblem:
         for d, r in enumerate(rows):
             led[d, : len(r)] = pt.local_elem_dofs[d, r]
             jz[d, : len(r)] = Jz[pos[pt.elems_of[d][r]]]
-        gidx, table = lv.element_routes(led, [len(r) for r in rows])
+        local = self.comm.local
+        gidx, table = lv.element_routes(local(led),
+                                        local([len(r) for r in rows]))
+        jz = local(jz)
         self._zd = dict(
             gidx=gidx, table=table,
             Jz=torch.as_tensor(jz.reshape((-1,) + Jz.shape[1:])).to(
@@ -1252,24 +1502,34 @@ class ShardedProblem:
         inv = np.zeros(NSurf, dtype=np.int64)
         flat = spos.ravel()
         inv[flat[flat < NSurf]] = np.flatnonzero(flat < NSurf)
-        self.surf_pos = _index(spos, self.device)
-        self.surf_loc = _index(sloc, self.device)
+        self.surf_pos = _index(self.comm.local(spos), self.device)
+        self.surf_loc = _index(self.comm.local(sloc), self.device)
         self._surf_read = _index(inv, self.device)
+
+    def _surface_values(self, v: torch.Tensor) -> torch.Tensor:
+        """A sharded vector's values at the surface dofs, in surface order:
+        read from the owners' rows (under a process group the owners'
+        values summed over the ranks, every other term 0)."""
+        vals = v.gather(1, self.surf_loc)
+        if self.comm.stacked:
+            return vals.reshape(-1)[self._surf_read]
+        buf = vals.new_zeros(self.comm.rows, self.NSurf + 1).scatter_(
+            1, self.surf_pos, vals)
+        return self.comm.psum(buf)[: self.NSurf]
 
     # ------------------------------------------------------------ the rhs
     def _zderiv_surface(self, phi: torch.Tensor) -> torch.Tensor:
         """dphi/dz at the surface dofs, in surface order."""
         zd, lv = self._zd, self._zlv
         p1 = self.prob.space.p + 1
-        u = phi.reshape(-1)[zd["gidx"]].view(-1, p1, p1, p1)
+        u = lv.gather_routed(phi, zd["gidx"]).view(-1, p1, p1, p1)
         Dn = zd["Dn"]
         gx = (u @ Dn.T).reshape(-1, p1 ** 3)
         gy = (Dn @ u).reshape(-1, p1 ** 3)
         gz = torch.einsum("cz,ezyx->ecyx", Dn, u).reshape(-1, p1 ** 3)
         Jz = zd["Jz"]
         w = Jz[..., 0] * gx + Jz[..., 1] * gy + Jz[..., 2] * gz
-        w_own = lv.fold(w, zd["table"]) * zd["invm"]
-        return w_own.gather(1, self.surf_loc).reshape(-1)[self._surf_read]
+        return self._surface_values(lv.fold(w, zd["table"]) * zd["invm"])
 
     def solve_laplace(self, phi_fs: torch.Tensor, phi_warm: torch.Tensor):
         """The Dirichlet Laplace solve with ``phi = phi_fs`` on the free
@@ -1280,7 +1540,7 @@ class ShardedProblem:
         lv, hi, pdot = self.fine, self.fine_hi, self.comm.pdot
         free = self.free
         pfs_pad = torch.cat([phi_fs, phi_fs.new_zeros(1)])
-        x_bc = phi_fs.new_zeros(self.ndev, self.N_max + 1).scatter_(
+        x_bc = phi_fs.new_zeros(self.comm.rows, self.N_max + 1).scatter_(
             1, self.surf_loc, pfs_pad[self.surf_pos])
         if self.pmg is not None:
             precond = self.pmg.vcycle
@@ -1328,20 +1588,25 @@ class ShardedProblem:
 
     # ------------------------------------------------------------------ API
     def stack_state(self, phi) -> torch.Tensor:
-        """A volume potential as the stacked ``[ndev, N_max+1]`` tensor on
-        the device: a stacked one (numpy or tensor) as it is, a global
-        ``[n]`` one through ``Partition.stack_dof``."""
+        """A volume potential as this process's rows ``[rows, N_max+1]`` of
+        the stacked tensor, on the device: a stacked one (numpy or tensor;
+        under a process group every shard's ``[ndev, N_max+1]`` or the
+        rank's ``[1, N_max+1]``) as it is, a global ``[n]`` one through
+        ``Partition.stack_dof``."""
+        comm = self.comm
         if isinstance(phi, torch.Tensor):
             phi = phi.detach()
-            if phi.dim() == 2:
+            if phi.dim() == 2 and phi.shape[0] == comm.rows:
                 return phi.to(device=self.device, dtype=self.dtype)
             phi = phi.cpu().numpy()
         phi = np.asarray(phi)
         if phi.ndim == 1:
             phi = self.pt.stack_dof(phi.astype(np.float64))
-        if phi.shape != (self.ndev, self.N_max + 1):
+        if phi.ndim == 2 and phi.shape[0] == self.ndev:
+            phi = comm.local(phi)
+        if phi.shape != (comm.rows, self.N_max + 1):
             raise ValueError(f"stacked potential of shape {phi.shape}, "
-                             f"expected {(self.ndev, self.N_max + 1)}")
+                             f"expected {(comm.rows, self.N_max + 1)}")
         return torch.as_tensor(phi).to(device=self.device, dtype=self.dtype)
 
     def run(self, n_steps: int | None = None, t0: float = 0.0, state=None,
@@ -1352,7 +1617,8 @@ class ShardedProblem:
         every step with the replicated ``y`` and ``aux`` a
         :class:`~lpfem_torch.surface.SolveCarry` of the stacked potential.
         The non-finite guard reads every shard's potential, so one shard's
-        NaN stops every shard at the same step (``lpfem/shard.py:1326-1328``).
+        NaN stops every shard at the same step (``lpfem/shard.py:1326-1328``;
+        under a process group through an all-reduce of the flag).
         After the run ``last_solver_stats`` holds the solver telemetry; an
         unconverged stage emits a ``RuntimeWarning``."""
         prob = self.prob
@@ -1361,8 +1627,9 @@ class ShardedProblem:
         y0, phi0 = state if state is not None else self.initial_state(t0)
         y0 = torch.as_tensor(y0).to(device=self.device, dtype=self.dtype)
         aux0 = SolveCarry(self.stack_state(phi0), SolveStats())
-        (t, y, aux), ok = rk4_run(self._rhs, y0, aux0, t0, prob.dt, n_steps,
-                                  record=record)
+        (t, y, aux), ok = rk4_run(
+            self._rhs, y0, aux0, t0, prob.dt, n_steps, record=record,
+            all_finite=None if self.comm.stacked else self.comm.all_true)
         self._last_ok = ok
         self.last_solver_stats = aux.stats
         if aux.stats.unconverged:
@@ -1372,9 +1639,15 @@ class ShardedProblem:
                 RuntimeWarning, stacklevel=2)
         return t, y, aux.phi
 
-    def phi_global(self, phi_stacked) -> np.ndarray:
-        """The stacked potential as a global ``[n]`` numpy vector."""
+    def phi_global(self, phi_stacked) -> np.ndarray | None:
+        """The stacked potential as a global ``[n]`` numpy vector. Under a
+        process group every rank calls it: the rows are gathered to rank 0,
+        which gets the vector; the others get ``None``."""
         if isinstance(phi_stacked, torch.Tensor):
+            if not self.comm.stacked:
+                phi_stacked = self.comm.gather_rows(phi_stacked.detach())
+                if phi_stacked is None:
+                    return None
             phi_stacked = phi_stacked.detach().cpu().numpy()
         return self.pt.unstack_dof(np.asarray(phi_stacked))
 
@@ -1387,5 +1660,5 @@ class ShardedProblem:
                 "detected and the run stopped at the last finite step")
         for name, v in (("free-surface state [eta; phi_fs]", y),
                         ("volume potential", phi)):
-            if not bool(torch.isfinite(v).all()):
+            if not bool(self.comm.all_true(torch.isfinite(v).all())):
                 raise FloatingPointError(f"non-finite values in {name}")

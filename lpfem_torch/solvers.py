@@ -21,7 +21,8 @@ import torch
 
 from .ds import DS, ds_add_f32, ds_sub
 
-__all__ = ["CGResult", "pcg", "pcg_ir", "pcg_ir_ds", "pcg_refined"]
+__all__ = ["CGResult", "pcg", "pcg_ir", "pcg_ir_ds", "pcg_refined",
+           "jacobi_preconditioner"]
 
 
 class CGResult(NamedTuple):
@@ -89,6 +90,14 @@ def pcg(apply_fn: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
         rz_min = torch.minimum(rz_min, rz_new)
         it += 1
     return CGResult(x=x, iters=it, rz=rz, rz0=rz0, syncs=syncs)
+
+
+def jacobi_preconditioner(diag: torch.Tensor) -> Callable:
+    """Diagonal (Jacobi) preconditioner, ``r -> r / diag`` (MFEM's
+    ``OperatorJacobiSmoother`` over the assembled PA diagonal; the caller
+    sets the essential dofs' entries to 1, the identity there)."""
+    inv = 1.0 / diag
+    return lambda r: r * inv
 
 
 def pcg_ir(apply_hi: Callable, apply_lo: Callable, b: torch.Tensor,

@@ -98,8 +98,8 @@ class LatticeSpace(_NodalProjection):
         """The tank of ``cfg`` (``periodic_tank`` or ``finite_tank``)."""
         if cfg.mesh_kind not in ("periodic_tank", "finite_tank"):
             raise NotImplementedError(
-                f"mesh_kind {cfg.mesh_kind!r}: only the generated Cartesian "
-                "tanks are ported (general meshes come later)")
+                f"mesh_kind {cfg.mesh_kind!r}: a lattice space holds the "
+                "generated Cartesian tanks; other meshes go through H1Space")
         lines = (grid_lines(cfg.nx, cfg.Lx, cfg.ref_levels),
                  grid_lines(cfg.ny, cfg.Ly, cfg.ref_levels),
                  grid_lines(cfg.nz, cfg.Lz, cfg.ref_levels))

@@ -34,7 +34,7 @@ import torch
 from .analytic import AiryWave
 from .ds import DS, SeparableDS, ds_from_f32, ds_from_f64
 from .operators import NodalZDerivative, SeparableLattice
-from .solvers import pcg, pcg_ir, pcg_ir_ds
+from .solvers import jacobi_preconditioner, pcg, pcg_ir, pcg_ir_ds
 from .space import SurfaceSpace
 
 __all__ = ["cgen_weight", "cabs_weight", "RelaxationZones",
@@ -190,8 +190,7 @@ class FreeSurfaceOperator:
             # Jacobi with identity on the essential dofs
             diag = self.op_solve.diag()
             diag[self.ess] = 1.0
-            inv_diag = 1.0 / diag
-            precond_fn = lambda r: r * inv_diag  # noqa: E731
+            precond_fn = jacobi_preconditioner(diag)
         self._precond = precond_fn
         if hi_apply not in ("auto", "ds", "f64"):
             raise ValueError(f"unknown hi_apply {hi_apply!r}")

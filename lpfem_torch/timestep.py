@@ -41,7 +41,8 @@ def rk4_step(f: Callable, t: float, dt: float, y: torch.Tensor, aux):
 
 def rk4_run(f: Callable, y0: torch.Tensor, aux0, t0: float, dt: float,
             n_steps: int, guard: bool = True,
-            record: Callable | None = None):
+            record: Callable | None = None,
+            all_finite: Callable | None = None):
     """``n_steps`` RK4 steps. Returns ``((t, y, aux), ok)``.
 
     With ``guard=True`` each step's state (``y`` and every tensor in ``aux``)
@@ -51,7 +52,10 @@ def rk4_run(f: Callable, y0: torch.Tensor, aux0, t0: float, dt: float,
 
     ``record(t, y, aux)`` is called after every completed step, the hook
     of lpfem's scan (which stacks what it returns; here the callback keeps
-    what it needs).
+    what it needs). ``all_finite`` maps this process's finiteness flag to
+    the flag of every process that holds a part of the state (the sharded
+    run over a process group: one rank's NaN stops every rank at the same
+    step).
     """
     t, y, aux, ok = float(t0), y0, aux0, True
     for _ in range(n_steps):
@@ -60,6 +64,8 @@ def rk4_run(f: Callable, y0: torch.Tensor, aux0, t0: float, dt: float,
             fin = torch.isfinite(y_new).all()
             for leaf in _leaves(aux_new):
                 fin = fin & torch.isfinite(leaf).all()
+            if all_finite is not None:
+                fin = all_finite(fin)
             if not bool(fin):
                 ok = False
                 break

@@ -20,7 +20,8 @@ inner pass. The shard modes of B1 and B2 (``-k shard``): against their
 plain versions over 3 and 4 stacked windows at the tolerances above, twice
 for the same bits; one sharded RK4 step against the single-device step on
 the GPU, 1e-8 absolute (lpfem's dryrun bound). The element kernels at
-p = 8..10 (``-k wide``), as at the lower orders.
+p = 8..10 (``-k wide``), as at the lower orders. Two gloo ranks on the
+GPU (``-k gloo``) against the stacked run, 1e-10 of max|y|.
 """
 
 import numpy as np
@@ -815,3 +816,32 @@ def test_sharded_step_on_gpu_matches_single_device(cuda, ndev):
     assert ksep.LAUNCHES_SHARD > n0
     _, y1, _ = prob.run(n_steps=1)
     assert float((y - y1).abs().max()) < 1e-8
+
+
+@pytest.mark.cuda
+def test_gloo_ranks_on_gpu_match_stacked(cuda, tmp_path):
+    """Two gloo ranks on the one GPU (``lpfem_torch.dist``: one process per
+    shard, the exchange staged through the host) against the stacked
+    two-shard run on the GPU from the same state and bounds, two float64
+    steps: y and phi within 1e-10 of max|y| / max|phi|, the running maximum
+    of the CG iterations equal after every step, B1's shard mode launched
+    on every rank, and no child process left."""
+    from lpfem_torch import dist
+    from lpfem_torch.shard import ShardedProblem
+    kw = dict(nx=8, ny=2, nz=8, order=4, cg_rtol_sq=1e-24, cg_max_iter=400,
+              precond="pmg", h_coarsen_min_dofs=0)
+    st = ShardedProblem.from_config(lpfem_torch.preset("scaling_base", **kw),
+                                    2, device=cuda)
+    its = []
+    _, y, phi = st.run(n_steps=2, record=lambda t, y, aux: its.append(
+        aux.stats.max_iters))
+    res = dist.run_spec({"preset": "scaling_base", "config": kw, "steps": 2,
+                         "device": "cuda", "lmax": st.pmg.lmax}, 2, tmp_path,
+                        timeout=600)
+    y, phi = y.cpu().numpy(), st.phi_global(phi)
+    assert np.abs(res["y"] - y).max() <= 1e-10 * np.abs(y).max()
+    assert np.abs(res["phi"] - phi).max() <= 1e-10 * np.abs(phi).max()
+    for r in res["ranks"]:
+        assert r["max_iters_per_step"] == its
+        assert r["launches"]["sep_apply_shard"] > 0
+    assert dist.live_descendants() == []
