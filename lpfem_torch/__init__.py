@@ -36,7 +36,8 @@ reader can find each counterpart:
     dist       shards as processes: the rank launcher (run_ranks), the
                rank's group (rank_group), the rank program (run_spec)
     io         VTU / PVD output, data files, checkpoints (NumPy)
-    profiling  phase timer, torch.profiler trace, finite-state check
+    profiling  spans and their record (stream markers, host-sync counts),
+               torch.profiler trace, finite-state check
     bench      the headline benchmark (``python -m lpfem_torch.bench``)
     entry      one RK4 step of the flagship model, ``(fn, example_args)``;
                ``dryrun_multichip``, the sharded step against the unsharded

@@ -17,9 +17,10 @@ start) at the protocol tolerance, the chained constrained-apply time (30 applies
 back to back, CUDA events), the host set-up seconds, the peak device memory
 (``torch.cuda.max_memory_allocated``) and the process's peak resident set.
 Like ``bench.py`` it prints one JSON line, with ``backend: "cuda"`` and the
-card's name and power limit (nvidia-smi) in ``detail``. ``vs_baseline`` is
-1.0: the repository's ``BENCH_r*.json`` records are TPU runs of the JAX
-package, not earlier runs on this card, and the twin reads none of them.
+card's name and power limit (nvidia-smi) in ``detail``. It has no
+``vs_baseline``: the repository's ``BENCH_r*.json`` records are TPU runs of
+the JAX package, not earlier runs on this card, and the twin reads none of
+them.
 
 Not ported: ``bench.py``'s ``--chunk`` and its re-exec on a wedged TPU (TPU
 plumbing), and the double-single outer loop, which ``bench.py`` has no flag
@@ -258,9 +259,7 @@ def main(argv=None) -> dict | str:
         "metric": "laplace_dof_throughput",
         "value": round(r["value"], 1),
         "unit": "dof*solves/s",
-        "vs_baseline": 1.0,
         "detail": {
-            "vs_baseline_basis": "no earlier record on this card",
             "protocol": "ss.cpp faithful: SetRelTol(1e-8) -> r.z<=rz0*1e-16"
                         if (args.rtol_sq == 1e-16 and args.dtype == "mixed")
                         else f"dtype={args.dtype} rtol_sq={args.rtol_sq}",

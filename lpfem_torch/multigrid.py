@@ -15,6 +15,13 @@ solve (inverted in float64 on the host) up to ``coarse_dense_limit`` dofs,
 else Chebyshev-16. The essential set is the free surface
 (``space.top_plane_dofs()``) on every level.
 
+Spans (:func:`~lpfem_torch.profiling.span`): ``multigrid.vcycle`` (one
+V-cycle) and ``multigrid.coarse``; details
+(:func:`~lpfem_torch.profiling.detail`): ``multigrid.L<i>.presmooth`` /
+``.residual`` / ``.restrict`` / ``.prolong`` / ``.postsmooth`` (level
+``i``'s stages, ``L0`` the finest; ``.prolong`` includes the correction's
+add).
+
 ``estimate_lmax`` starts from a seeded ``torch.Generator``; the reference
 starts from ``jax.random.normal(PRNGKey(0))``, which cannot be reproduced,
 so parity tests inject the reference's per-level lambda_max (``lmax=``).
@@ -27,6 +34,7 @@ import torch
 
 from .elements import basis_1d, lagrange_eval
 from .operators import laplace_operator
+from .profiling import detail, span
 
 __all__ = ["ChebyshevSmoother", "PMultigrid", "estimate_lmax"]
 
@@ -242,6 +250,12 @@ class PMultigrid:
                                             degree=smooth_degree)
                           for lv, lm in zip(self.levels, self.lmax)]
 
+        # the details of each level's stages, named by the level's index
+        self._spans = [tuple(f"multigrid.L{i}.{stage}" for stage in
+                             ("presmooth", "residual", "restrict", "prolong",
+                              "postsmooth"))
+                       for i in range(len(self.levels) - 1)]
+
         cl = self.levels[-1]
         if cl.op.n_dofs <= coarse_dense_limit:
             A = cl.op.assemble_scipy().toarray()
@@ -260,16 +274,25 @@ class PMultigrid:
 
     def _vcycle(self, li: int, r: torch.Tensor) -> torch.Tensor:
         if li == len(self.levels) - 1:
-            return self.coarse_solve(r)
+            with span("multigrid.coarse"):
+                return self.coarse_solve(r)
         sm = self.smoothers[li]
         lv = self.levels[li]
         tr = self.transfers[li]
-        z = sm(r)                                   # pre-smooth from zero
+        pre, res, restrict, prolong, post = self._spans[li]
+        with detail(pre):
+            z = sm(r)                               # pre-smooth from zero
         coarse = self.levels[li + 1]
-        rc = tr.restrict(lv, coarse, r - lv.apply_c(z))
+        with detail(res):
+            rf = r - lv.apply_c(z)
+        with detail(restrict):
+            rc = tr.restrict(lv, coarse, rf)
         zc = self._vcycle(li + 1, rc)
-        z = z + tr.prolong(lv, coarse, zc)
-        return sm(r, z0=z)                          # post-smooth
+        with detail(prolong):
+            z = z + tr.prolong(lv, coarse, zc)
+        with detail(post):
+            return sm(r, z0=z)                      # post-smooth
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
-        return self._vcycle(0, r)
+        with span("multigrid.vcycle"):
+            return self._vcycle(0, r)

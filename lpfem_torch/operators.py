@@ -70,6 +70,7 @@ from .kernels.pa_apply import (pa_apply_affine, pa_apply_affine_reference,
                                pa_apply_element, pa_apply_element_reference)
 from .kernels.sep_apply import sep_apply
 from .mesh import HEX_VERTS
+from .profiling import detail, recording
 from .space import LatticeSpace
 
 __all__ = ["SeparableLattice", "AffineLatticeLaplace", "ElementLaplace",
@@ -500,13 +501,23 @@ class ElementLaplace(_Operator):
         return torch.tensor(free[self.space.elem_dofs]).to(
             device=self.device, dtype=self.dtype)
 
+    # gather and fold run ~13.5k times a step on the cylinder: while nothing
+    # records they test for a profile themselves and take no context, under
+    # half a detail's cost (lpfem_torch.profiling.recording)
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """[n_dofs] -> E-vector [ne, L] in the space's element order."""
+        """[n_dofs] -> E-vector [ne, L] in the space's element order (the
+        detail ``operators.gather``)."""
+        if recording():
+            with detail("operators.gather"):
+                return x[self.elem_dofs]
         return x[self.elem_dofs]
 
     def scatter(self, ye: torch.Tensor) -> torch.Tensor:
         """E-vector [ne, L] -> assembled [n_dofs] (transpose of
-        ``gather``)."""
+        ``gather``; the detail ``operators.fold``)."""
+        if recording():
+            with detail("operators.fold"):
+                return _fold(ye, self.fold)
         return _fold(ye, self.fold)
 
     # ------------------------------------------------------------ the applies

@@ -40,6 +40,7 @@ from .mesh import Mesh, load_gmsh, load_mfem
 from .multigrid import ChebyshevSmoother, PMultigrid, estimate_lmax
 from .operators import (APPLY_MODES, AssembledLaplace, laplace_operator,
                         nodal_z_derivative)
+from .profiling import reset, sync
 from .space import CurvedLatticeSpace, H1Space, LatticeSpace, SurfaceSpace
 from .surface import (FreeSurfaceOperator, RelaxationZones, SolveCarry,
                       SolveStats, cabs_weight, cgen_weight)
@@ -122,6 +123,9 @@ class Problem:
         _check_supported(cfg, mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
+        # a fresh record of spans and syncs (lpfem_torch.profiling): one
+        # problem's run is not read in the next one's
+        reset()
         self.mixed = cfg.dtype == "mixed"
         self.dtype, op_dtype = state_dtypes(cfg.dtype)
         if mesh is None and cfg.mesh_kind in _TANKS:
@@ -254,7 +258,9 @@ class Problem:
 
     def check_state(self, y: torch.Tensor, phi: torch.Tensor) -> None:
         """Raise if the run diverged (the freeze guard tripped) or the
-        returned state is non-finite."""
+        returned state is non-finite: two host reads
+        (``problem.check_state`` in the record of
+        ``lpfem_torch.profiling``)."""
         if self._last_ok is False:
             raise FloatingPointError(
                 "time integration diverged: a non-finite RK4 stage was "
@@ -263,6 +269,7 @@ class Problem:
             phi = ds_to_f64(phi)
         for name, v in (("free-surface state [eta; phi_fs]", y),
                         ("volume potential", phi)):
+            sync("problem.check_state")
             if not bool(torch.isfinite(v).all()):
                 raise FloatingPointError(f"non-finite values in {name}")
 

@@ -10,7 +10,15 @@ with ``max_outer`` / ``inner_rtol_sq``.
 The reference's ``lax.while_loop`` becomes a host loop: the iteration's
 arithmetic stays on the device, and the exit test reads one boolean back,
 so every test is one host-device synchronisation. ``CGResult.syncs`` counts
-them. (CUDA graphs that remove them are later work.)
+them, on the lines that count them in the record of
+:mod:`lpfem_torch.profiling` by site (``solvers.exit_test``,
+``solvers.ir_pass``). (CUDA graphs that remove them are later work.)
+
+Spans (:func:`~lpfem_torch.profiling.span`): ``solvers.cg_iteration`` (one
+iteration's body and the exit test that ends it), ``solvers.apply`` (the
+CG's own operator applies) and ``solvers.ir_pass`` (one outer pass: its
+test, its inner solve and its high-precision residual); the detail
+``solvers.exit_test`` (:func:`~lpfem_torch.profiling.detail`).
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .ds import DS, ds_add_f32, ds_sub
+from .profiling import detail, span, sync
 
 __all__ = ["CGResult", "pcg", "pcg_ir", "pcg_ir_ds", "pcg_refined",
            "jacobi_preconditioner"]
@@ -58,7 +67,8 @@ def pcg(apply_fn: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
         r = b.clone()
     else:
         x = x0
-        r = b - apply_fn(x0)
+        with span("solvers.apply"):
+            r = b - apply_fn(x0)
     z = precond_fn(r)
     d = z
     rz = dot_fn(r, z)
@@ -67,29 +77,43 @@ def pcg(apply_fn: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
     rz_min = rz
     it = 0
     syncs = 0
-    while it < max_iter:
+    go = it < max_iter
+    if go:
+        syncs += sync("solvers.exit_test")
+        go = _exit_test(rz, threshold, rz_min, grow_limit)
+    while go:
+        with span("solvers.cg_iteration"):
+            with span("solvers.apply"):
+                Ad = apply_fn(d)
+            dAd = dot_fn(d, Ad)
+            # zero-denominator guards: hold the iterate instead of making
+            # NaNs
+            pos = dAd > 0
+            alpha = torch.where(pos, rz / torch.where(pos, dAd, 1.0), 0.0)
+            x = x + alpha * d
+            r = r - alpha * Ad
+            z = precond_fn(r)
+            rz_new = dot_fn(r, z)
+            pos = rz > 0
+            beta = torch.where(pos, rz_new / torch.where(pos, rz, 1.0), 0.0)
+            d = z + beta * d
+            rz = rz_new
+            rz_min = torch.minimum(rz_min, rz_new)
+            it += 1
+            go = it < max_iter
+            if go:
+                syncs += sync("solvers.exit_test")
+                go = _exit_test(rz, threshold, rz_min, grow_limit)
+    return CGResult(x=x, iters=it, rz=rz, rz0=rz0, syncs=syncs)
+
+
+def _exit_test(rz, threshold, rz_min, grow_limit) -> bool:
+    """Whether the CG goes on: one host read of the device."""
+    with detail("solvers.exit_test"):
         go = rz > threshold
         if grow_limit is not None:
             go = go & (rz < grow_limit * rz_min)
-        syncs += 1
-        if not bool(go):
-            break
-        Ad = apply_fn(d)
-        dAd = dot_fn(d, Ad)
-        # zero-denominator guards: hold the iterate instead of making NaNs
-        pos = dAd > 0
-        alpha = torch.where(pos, rz / torch.where(pos, dAd, 1.0), 0.0)
-        x = x + alpha * d
-        r = r - alpha * Ad
-        z = precond_fn(r)
-        rz_new = dot_fn(r, z)
-        pos = rz > 0
-        beta = torch.where(pos, rz_new / torch.where(pos, rz, 1.0), 0.0)
-        d = z + beta * d
-        rz = rz_new
-        rz_min = torch.minimum(rz_min, rz_new)
-        it += 1
-    return CGResult(x=x, iters=it, rz=rz, rz0=rz0, syncs=syncs)
+        return bool(go)
 
 
 def jacobi_preconditioner(diag: torch.Tensor) -> Callable:
@@ -123,17 +147,18 @@ def pcg_ir(apply_hi: Callable, apply_lo: Callable, b: torch.Tensor,
     it = 0
     syncs = 0
     for _ in range(max_outer):
-        syncs += 1
-        if not bool(rr > threshold):
-            break
-        inner = pcg(apply_lo, r.to(lo_dtype), None, precond_fn=precond_lo,
-                    rtol_sq=inner_rtol_sq, max_iter=inner_max_iter,
-                    dot_fn=dot_fn)
-        x = x + inner.x.to(b.dtype)
-        r = b - apply_hi(x)
-        rr = dot_fn(r, r)
-        it += inner.iters
-        syncs += inner.syncs
+        with span("solvers.ir_pass"):
+            syncs += sync("solvers.ir_pass")
+            if not bool(rr > threshold):
+                break
+            inner = pcg(apply_lo, r.to(lo_dtype), None,
+                        precond_fn=precond_lo, rtol_sq=inner_rtol_sq,
+                        max_iter=inner_max_iter, dot_fn=dot_fn)
+            x = x + inner.x.to(b.dtype)
+            r = b - apply_hi(x)
+            rr = dot_fn(r, r)
+            it += inner.iters
+            syncs += inner.syncs
     return CGResult(x=x, iters=it, rz=rr, rz0=rr0, syncs=syncs)
 
 
@@ -162,16 +187,17 @@ def pcg_ir_ds(apply_ds: Callable, apply_lo: Callable, b: DS, x0: DS,
     it = 0
     syncs = 0
     for _ in range(max_outer):
-        syncs += 1
-        if not bool(rr > threshold):
-            break
-        inner = pcg(apply_lo, r.hi, None, precond_fn=precond_lo,
-                    rtol_sq=inner_rtol_sq, max_iter=inner_max_iter)
-        x = ds_add_f32(x, inner.x)
-        r = ds_sub(b, apply_ds(x))
-        rr = _dot(r.hi, r.hi)
-        it += inner.iters
-        syncs += inner.syncs
+        with span("solvers.ir_pass"):
+            syncs += sync("solvers.ir_pass")
+            if not bool(rr > threshold):
+                break
+            inner = pcg(apply_lo, r.hi, None, precond_fn=precond_lo,
+                        rtol_sq=inner_rtol_sq, max_iter=inner_max_iter)
+            x = ds_add_f32(x, inner.x)
+            r = ds_sub(b, apply_ds(x))
+            rr = _dot(r.hi, r.hi)
+            it += inner.iters
+            syncs += inner.syncs
     return CGResult(x=x, iters=it, rz=rr, rz0=rr0, syncs=syncs)
 
 

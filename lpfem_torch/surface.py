@@ -34,6 +34,7 @@ import torch
 from .analytic import AiryWave
 from .ds import DS, SeparableDS, ds_from_f32, ds_from_f64
 from .operators import NodalZDerivative, SeparableLattice
+from .profiling import span, sync
 from .solvers import jacobi_preconditioner, pcg, pcg_ir, pcg_ir_ds
 from .space import SurfaceSpace
 
@@ -205,30 +206,34 @@ class FreeSurfaceOperator:
 
     def solve_laplace(self, phi_fs: torch.Tensor, phi_warm: torch.Tensor):
         """Dirichlet Laplace solve, phi = phi_fs on the free surface
-        (``Solvers/PF_linear_periodic.cpp:71-92``). Returns (phi, info)."""
-        if self._ds_op is not None:
-            return self._solve_laplace_ds(phi_fs, phi_warm)
-        sop = self.op_hi if self.op_hi is not None else self.op_solve
-        b = torch.zeros(sop.n_dofs, dtype=phi_warm.dtype,
-                        device=phi_warm.device)
-        B, _ = sop.constrained_rhs(b, phi_fs, self.ess)
-        x0 = phi_warm.clone()
-        x0[self.ess] = phi_fs
-        if self.op_hi is not None:
-            res = pcg_ir(self.op_hi.constrained_apply_top,
-                         self.op.constrained_apply_top, B, x0,
-                         precond_lo=self._precond,
-                         rtol_sq=self.cg_rtol_sq, atol_sq=self.cg_atol_sq,
-                         max_outer=self.ir_max_outer,
-                         inner_rtol_sq=self.ir_inner_rtol_sq,
-                         inner_max_iter=self.cg_max_iter,
-                         lo_dtype=self.op.dtype)
-        else:
-            res = pcg(self.op_solve.constrained_apply_top, B, x0,
-                      precond_fn=self._precond,
-                      rtol_sq=self.cg_rtol_sq, atol_sq=self.cg_atol_sq,
-                      max_iter=self.cg_max_iter)
-        return res.x, self._info(res)
+        (``Solvers/PF_linear_periodic.cpp:71-92``). Returns (phi, info).
+        The span ``surface.solve`` covers the right-hand side, the warm
+        start, the solver and the verdict."""
+        with span("surface.solve"):
+            if self._ds_op is not None:
+                return self._solve_laplace_ds(phi_fs, phi_warm)
+            sop = self.op_hi if self.op_hi is not None else self.op_solve
+            b = torch.zeros(sop.n_dofs, dtype=phi_warm.dtype,
+                            device=phi_warm.device)
+            B, _ = sop.constrained_rhs(b, phi_fs, self.ess)
+            x0 = phi_warm.clone()
+            x0[self.ess] = phi_fs
+            if self.op_hi is not None:
+                res = pcg_ir(self.op_hi.constrained_apply_top,
+                             self.op.constrained_apply_top, B, x0,
+                             precond_lo=self._precond,
+                             rtol_sq=self.cg_rtol_sq,
+                             atol_sq=self.cg_atol_sq,
+                             max_outer=self.ir_max_outer,
+                             inner_rtol_sq=self.ir_inner_rtol_sq,
+                             inner_max_iter=self.cg_max_iter,
+                             lo_dtype=self.op.dtype)
+            else:
+                res = pcg(self.op_solve.constrained_apply_top, B, x0,
+                          precond_fn=self._precond,
+                          rtol_sq=self.cg_rtol_sq, atol_sq=self.cg_atol_sq,
+                          max_iter=self.cg_max_iter)
+            return res.x, self._info(res)
 
     def _solve_laplace_ds(self, phi_fs: torch.Tensor, phi_warm):
         """The double-single solve (``lpfem/surface.py:282-319``): the
@@ -261,27 +266,31 @@ class FreeSurfaceOperator:
         """Verdict under the MFEM threshold the solve ran with, in the
         residual's dtype (float32 on the double-single path, as lpfem's);
         a max_iter, breakdown or NaN exit reports converged == False."""
-        ok = res.rz <= torch.clamp_min(res.rz0 * self.cg_rtol_sq,
-                                       self.cg_atol_sq)
-        rz, rz0, conv = torch.stack([res.rz, res.rz0,
-                                     ok.to(res.rz.dtype)]).tolist()  # 1 sync
-        return SolveInfo(iters=int(res.iters), converged=bool(conv),
-                         rz=rz, rz0=rz0, syncs=res.syncs + 1)
+        with span("surface.verdict"):
+            ok = res.rz <= torch.clamp_min(res.rz0 * self.cg_rtol_sq,
+                                           self.cg_atol_sq)
+            rz, rz0, conv = torch.stack([res.rz, res.rz0,
+                                         ok.to(res.rz.dtype)]).tolist()
+            return SolveInfo(iters=int(res.iters), converged=bool(conv),
+                             rz=rz, rz0=rz0,
+                             syncs=res.syncs + sync("surface.verdict"))
 
     def __call__(self, t, y: torch.Tensor, aux: SolveCarry):
-        ns = self.n_surf
-        eta, phi_fs = y[:ns], y[ns:]
-        phi, info = self.solve_laplace(phi_fs, aux.phi)
-        deta = self.zderiv.top_trace(phi)
-        dphi_fs = -self.g * eta
-        if self.relax is not None:
-            rz = self.relax
-            eta_e, phi_e = rz.targets(t)
-            alpha_gen = min(max(t / (rz.n_ramp * rz.T), 0.0), 1.0)
-            inv_tau = 1.0 / rz.tau
-            gen_w = alpha_gen * rz.cgen * inv_tau
-            deta = deta + gen_w * (eta_e - eta) - rz.cabs * inv_tau * eta
-            dphi_fs = (dphi_fs + gen_w * (phi_e - phi_fs)
-                       - rz.cabs * inv_tau * phi_fs)
-        return torch.cat([deta, dphi_fs]), SolveCarry(phi,
-                                                      aux.stats.update(info))
+        with span("surface.stage"):
+            ns = self.n_surf
+            eta, phi_fs = y[:ns], y[ns:]
+            phi, info = self.solve_laplace(phi_fs, aux.phi)
+            with span("surface.top_trace"):
+                deta = self.zderiv.top_trace(phi)
+            dphi_fs = -self.g * eta
+            if self.relax is not None:
+                rz = self.relax
+                eta_e, phi_e = rz.targets(t)
+                alpha_gen = min(max(t / (rz.n_ramp * rz.T), 0.0), 1.0)
+                inv_tau = 1.0 / rz.tau
+                gen_w = alpha_gen * rz.cgen * inv_tau
+                deta = deta + gen_w * (eta_e - eta) - rz.cabs * inv_tau * eta
+                dphi_fs = (dphi_fs + gen_w * (phi_e - phi_fs)
+                           - rz.cabs * inv_tau * phi_fs)
+            return torch.cat([deta, dphi_fs]), SolveCarry(
+                phi, aux.stats.update(info))

@@ -14,6 +14,8 @@ from typing import Callable
 
 import torch
 
+from .profiling import span, step, sync
+
 __all__ = ["rk4_step", "rk4_run"]
 
 _A = (0.0, 0.5, 0.5, 1.0)
@@ -46,9 +48,12 @@ def rk4_run(f: Callable, y0: torch.Tensor, aux0, t0: float, dt: float,
     """``n_steps`` RK4 steps. Returns ``((t, y, aux), ok)``.
 
     With ``guard=True`` each step's state (``y`` and every tensor in ``aux``)
-    is checked for finiteness — one host read per step. Once a step produces
-    a non-finite value the run stops at the last finite ``(t, y, aux)`` and
-    ``ok`` is False, as the reference's in-scan freeze does.
+    is checked for finiteness — one host read per step (counted in the
+    record of ``lpfem_torch.profiling`` as ``timestep.guard``). Once a step
+    produces a non-finite value the run stops at the last finite
+    ``(t, y, aux)`` and ``ok`` is False, as the reference's in-scan freeze
+    does. Spans: ``timestep.step`` (the step and its guard, not
+    ``record``) and ``timestep.guard``.
 
     ``record(t, y, aux)`` is called after every completed step, the hook
     of lpfem's scan (which stacks what it returns; here the callback keeps
@@ -59,16 +64,19 @@ def rk4_run(f: Callable, y0: torch.Tensor, aux0, t0: float, dt: float,
     """
     t, y, aux, ok = float(t0), y0, aux0, True
     for _ in range(n_steps):
-        y_new, aux_new = rk4_step(f, t, dt, y, aux)
-        if guard:
-            fin = torch.isfinite(y_new).all()
-            for leaf in _leaves(aux_new):
-                fin = fin & torch.isfinite(leaf).all()
-            if all_finite is not None:
-                fin = all_finite(fin)
-            if not bool(fin):
-                ok = False
-                break
+        with step(y.device):
+            y_new, aux_new = rk4_step(f, t, dt, y, aux)
+            if guard:
+                with span("timestep.guard"):
+                    fin = torch.isfinite(y_new).all()
+                    for leaf in _leaves(aux_new):
+                        fin = fin & torch.isfinite(leaf).all()
+                    if all_finite is not None:
+                        fin = all_finite(fin)
+                    sync("timestep.guard")
+                    ok = bool(fin)
+        if not ok:
+            break
         y, aux, t = y_new, aux_new, t + dt
         if record is not None:
             record(t, y, aux)

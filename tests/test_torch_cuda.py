@@ -21,7 +21,11 @@ plain versions over 3 and 4 stacked windows at the tolerances above, twice
 for the same bits; one sharded RK4 step against the single-device step on
 the GPU, 1e-8 absolute (lpfem's dryrun bound). The element kernels at
 p = 8..10 (``-k wide``), as at the lower orders. Two gloo ranks on the
-GPU (``-k gloo``) against the stacked run, 1e-10 of max|y|.
+GPU (``-k gloo``) against the stacked run, 1e-10 of max|y|. The spans'
+stream markers (``-k spans``): CUDA events on the card's stream, under a
+host and a device-only profile, with the answers bit for bit as untraced;
+the details' markers only when asked for; a sharded problem built on the
+host marks the card's stream.
 """
 
 import numpy as np
@@ -845,3 +849,78 @@ def test_gloo_ranks_on_gpu_match_stacked(cuda, tmp_path):
         assert r["max_iters_per_step"] == its
         assert r["launches"]["sep_apply_shard"] > 0
     assert dist.live_descendants() == []
+
+
+@pytest.mark.cuda
+def test_spans_mark_the_stream(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    from lpfem_torch import profiling
+    cfg = lpfem_torch.preset("scaling_base", nx=8, nz=2, ref_levels=0,
+                             order=4, dtype="mixed", precond="pmg",
+                             cg_rtol_sq=1e-16, cheb_degree=4)
+    prob = lpfem_torch.Problem(cfg, device=cuda)
+    y0, phi0 = prob.initial_state()
+    _, y_off, phi_off = prob.run(n_steps=2, state=(y0.clone(), phi0.clone()))
+    rec = profiling.record()
+    assert rec.table() == {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        _, y_on, phi_on = prob.run(n_steps=2,
+                                   state=(y0.clone(), phi0.clone()))
+    assert torch.equal(y_on, y_off) and torch.equal(phi_on, phi_off)
+    assert rec.device.type == "cuda"
+    tab = rec.table()
+    assert rec.steps == 2 and not rec._pending
+    step = tab["timestep.step"]
+    # every span's stream time inside the steps', the self times summing
+    # to the steps' (one stream, nested markers); the details unmarked
+    assert step.stream > 0.0
+    assert abs(sum(t.stream_self for t in tab.values()) - step.stream) \
+        <= 1e-6 * step.stream
+    for name in ("surface.solve", "solvers.cg_iteration",
+                 "multigrid.vcycle", "solvers.apply", "multigrid.coarse"):
+        assert 0.0 < tab[name].stream < step.stream
+    assert all(t.stream_self > -1e-5 for t in tab.values())
+    assert tab["solvers.exit_test"].stream == 0.0
+    assert tab["multigrid.L0.presmooth"].calls > 0
+    assert tab["multigrid.L0.presmooth"].stream == 0.0
+    # a device-only profile turns the spans on as well
+    with profile(activities=[ProfilerActivity.CUDA]):
+        prob.run(n_steps=1, state=(y0.clone(), phi0.clone()))
+    assert rec.steps == 3 and rec.totals("timestep.step").stream > \
+        step.stream
+    assert rec.first(2).totals("timestep.step") == step
+    # the details marked on request
+    profiling.mark_details(True)
+    try:
+        rec = profiling.reset()
+        with profile(activities=[ProfilerActivity.CUDA]):
+            prob.run(n_steps=1, state=(y0.clone(), phi0.clone()))
+    finally:
+        profiling.mark_details(False)
+    tab = rec.table()
+    assert 0.0 < tab["multigrid.L0.presmooth"].stream < \
+        tab["multigrid.vcycle"].stream
+    assert abs(sum(t.stream_self for t in tab.values())
+               - tab["timestep.step"].stream) <= \
+        1e-6 * tab["timestep.step"].stream
+
+
+@pytest.mark.cuda
+def test_spans_of_a_sharded_problem_mark_the_card(cuda):
+    """``ShardedProblem.from_config`` builds its ``Problem`` on the host; the
+    steps it runs on the card put the record's markers there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lpfem_torch import profiling
+    from lpfem_torch.shard import ShardedProblem
+    cfg = lpfem_torch.preset("scaling_base", nx=8, ny=2, nz=4, order=2,
+                             precond="pmg", h_coarsen_min_dofs=0)
+    sp = ShardedProblem.from_config(cfg, 2, device=cuda)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        sp.run(n_steps=1)
+    rec = profiling.record()
+    assert rec.device.type == "cuda" and rec.steps == 1
+    tab = rec.table()
+    assert 0.0 < tab["solvers.cg_iteration"].stream < \
+        tab["timestep.step"].stream

@@ -8,7 +8,7 @@
 - Checkpoints: a round trip is exact, a double-single potential included
   (recombined to float64 on save, split again on resume), and each package
   reads the other's file.
-- ``PhaseTimer``, ``check_finite``, ``trace``.
+- the record's spans (the phase timer), ``check_finite``, ``trace``.
 """
 
 import numpy as np
@@ -24,7 +24,7 @@ from lpfem.space import SurfaceSpace as LSurfaceSpace
 from lpfem_torch import io as pio
 from lpfem_torch.ds import DS, ds_from_f64, ds_to_f64
 from lpfem_torch.mesh import make_wave_tank_finite
-from lpfem_torch.profiling import PhaseTimer, check_finite, trace
+from lpfem_torch.profiling import check_finite, reset, span, trace
 from lpfem_torch.space import H1Space, LatticeSpace, SurfaceSpace, grid_lines
 
 ROWS = [(1, 282880, "mixed", 1e-16, 0.2875, 39355347.2, 8, 0.9291),
@@ -140,16 +140,27 @@ def test_checkpoint_round_trip_is_exact(tmp_path):
 
 
 def test_phase_timer_and_check_finite(tmp_path):
-    pt = PhaseTimer()
+    # the phase timer is the program's record: spans (phases) record while
+    # a profiler does, with calls and host and stream seconds
+    rec = reset()
     for _ in range(3):
-        with pt.phase("apply", block_on=torch.ones(3)):
+        with span("apply"):
             pass
-    out = pt.time("sum", torch.sum, torch.arange(10.0))
+    assert rec.table() == {}
+    with trace(str(tmp_path / "tr0")):
+        for _ in range(3):
+            with span("apply"):
+                pass
+        with span("sum"):
+            out = torch.sum(torch.arange(10.0))
     assert float(out) == 45.0
-    assert pt.counts == {"apply": 3, "sum": 1}
-    rep = pt.report().splitlines()
-    assert rep[0].split() == ["phase", "calls", "total[s]", "mean[ms]"]
-    assert {r.split()[0] for r in rep[1:]} == {"apply", "sum"}
+    assert {k: t.calls for k, t in rec.table().items()} == {"apply": 3,
+                                                            "sum": 1}
+    rep = rec.report().splitlines()
+    assert rep[0].split() == ["span", "calls", "host[s]", "self[s]",
+                              "stream[s]", "self[s]"]
+    assert {r.split()[0] for r in rep[1:3]} == {"apply", "sum"}
+    reset()
 
     check_finite("ok", np.ones(4), torch.zeros(3))
     with pytest.raises(FloatingPointError, match="bad: array 1 has 2/4"):
