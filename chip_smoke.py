@@ -89,8 +89,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    cut from one period, 35 steps, to make room for phase 5; the width is the
    study's), each with the launch counts set to 0 just before and read
    just after (B3b calls per RK4 step by order p printed). Requires every
-   solve converged, a finite state, B3b launches in both runs, 0 < max|eta| < H, and the mixed run's final eta within
-   1e-2 max|eta| of the float64 run's.
+   solve converged, a finite state, B3b launches in both runs, 0 < max|eta|
+   < H, and the mixed run's final eta within 1e-2 max|eta| of the float64
+   run's; the p-multigrid's coarse route ``"fused"`` in both runs and
+   ``coarse_cheb`` launches, by dtype, equal to the run's V-cycles (calls
+   of ``PMultigrid``; float32 in the mixed run), which in the float64 run
+   are its CG iterations plus its solves.
 5. The general-mesh path, launch counts set to 0 just before each run and
    read just after; every solve must converge and the state stay finite:
    - A: the ss.cpp tank meshed with leaning elements (``x += a z``, element
@@ -236,6 +240,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    recursively) and fails if there is one; a failed rank fails the run
    after its siblings are reaped.
 
+12. The fused Chebyshev coarse solve (``kernels.coarse_cheb``, one
+    thread-block cluster a solve) on the diffraction study, as phase 4
+    builds it in mixed precision (the float32 preconditioner) and in
+    float64: the p-multigrid must take the ``"fused"`` route; on its p = 1
+    level (8,730 dofs) the kernel within 1e-5 (float32) / 1e-12 (float64)
+    of max|z| of the eager Chebyshev-16 and of its plain mirror
+    (``coarse_cheb_mirror``) on the card, and the same bits twice. Then in
+    float64: device ms per coarse solve (median of 5 chains of
+    30 solves, CUDA events; and torch.profiler's device time with the
+    activities per solve) beside the eager chain's; the device activities
+    per V-cycle with the fused and with the eager coarse solve; ptxas's
+    registers and spills (phase 1) and the shared-memory bytes of the
+    layout; the kernel's launches equal to the V-cycles over 3 RK4 steps;
+    the untraced step wall with the fused and the eager coarse solve
+    (fused, eager, eager, fused; the same iterations) and the coarse's
+    share of the eager step it gives; and no launch in phase 3's tank
+    (dense coarse route).
+
 Phases 3, 4 (float64), 5A, 5B, 6 and 9b each profile one more RK4 step with
 torch.profiler, outside the timed window: device kernel time by category and
 the device's busy share. Each phase's own time is printed.
@@ -244,7 +266,9 @@ Prints one JSON line describing the kernels (B1's ``orders_on_path``: the
 orders phases 7-8 launched it at; B2's, B3a's and B3b's: the orders phases
 4, 5, 10a and 10b launched them at, with their p = 8..10 rows under
 ``wide_orders``; the shard modes' ``launches`` from 9b's and 9c's runs,
-and ``launches_under_ranks`` from 11a's and 11b's),
+and ``launches_under_ranks`` from 11a's and 11b's; ``coarse_cheb``'s
+``launches`` and ``launches_by_dtype`` from phase 4's two runs, beside
+their V-cycles),
 then as the last line
 ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``.
@@ -252,6 +276,7 @@ then as the last line
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
@@ -270,7 +295,8 @@ CYL_DOFS = 340_725
 LEAN = dict(wave_by="wavelength", wave_lambda=0.5)   # Lx / wave_m
 PATH_B_REF_LEVELS = 2          # 512 -> 32,768 hexes, 2,179,584 dofs
 PATH_C_STEPS = 4
-KERNEL_SOURCES = ("sep_apply", "pa_apply", "lattice_apply", "sep_apply_ds")
+KERNEL_SOURCES = ("sep_apply", "pa_apply", "lattice_apply", "sep_apply_ds",
+                  "coarse_cheb")
 CHAIN = 30
 TOL = {"float32": 1e-5, "float64": 1e-13}
 # The float64 cuSPARSE yardstick at p=4 multiplies a matrix assembled from
@@ -1426,8 +1452,9 @@ def _sync_round_trip_us(reps: int = 200) -> float:
 
 
 def _zero_counts():
-    from lpfem_torch.kernels import (lattice_apply, pa_apply, sep_apply,
-                                     sep_apply_ds)
+    from lpfem_torch.kernels import (coarse_cheb, lattice_apply, pa_apply,
+                                     sep_apply, sep_apply_ds)
+    coarse_cheb.LAUNCHES.clear()
     sep_apply.LAUNCHES = 0
     sep_apply.LAUNCHES_BY_P.clear()
     pa_apply.LAUNCHES = 0
@@ -1439,10 +1466,31 @@ def _zero_counts():
     sep_apply_ds.LAUNCHES = 0
 
 
+@contextlib.contextmanager
+def _count_vcycles():
+    """Count the calls of ``PMultigrid.__call__`` (V-cycles) in the block:
+    yields a one-element list that holds the count."""
+    from lpfem_torch import multigrid
+    calls = [0]
+    orig = multigrid.PMultigrid.__call__
+
+    def counted(self, r):
+        calls[0] += 1
+        return orig(self, r)
+
+    multigrid.PMultigrid.__call__ = counted
+    try:
+        yield calls
+    finally:
+        multigrid.PMultigrid.__call__ = orig
+
+
 def _read_counts() -> dict:
-    from lpfem_torch.kernels import (lattice_apply, pa_apply, sep_apply,
-                                     sep_apply_ds)
+    from lpfem_torch.kernels import (coarse_cheb, lattice_apply, pa_apply,
+                                     sep_apply, sep_apply_ds)
     return {"sep_apply": sep_apply.LAUNCHES,
+            "coarse_cheb": sum(coarse_cheb.LAUNCHES.values()),
+            "coarse_cheb_by_dtype": dict(coarse_cheb.LAUNCHES),
             "pa_apply_element": pa_apply.LAUNCHES,
             "pa_apply_affine": pa_apply.LAUNCHES_AFFINE,
             "lattice_affine_apply": lattice_apply.LAUNCHES,
@@ -1569,8 +1617,10 @@ def phase_diffraction(report: dict) -> int:
         n, ns = prob.space.n_dofs, prob.surf.n_dofs
         if n != CYL_DOFS:
             raise AssertionError(f"expected {CYL_DOFS} dofs, got {n}")
-        coarse = ("dense" if prob.precond._coarse_inv is not None
-                  else "Chebyshev-16")
+        coarse = prob.precond.coarse_route
+        if coarse != "fused":
+            raise AssertionError(f"{dtype}: the study's coarse route is "
+                                 f"{coarse!r}, not 'fused'")
         print(f"[4] {dtype}: setup {setup:.2f} s: {prob.space.mesh.n_elems} "
               f"curved hexes, {n} dofs {prob.space.dof_dims}, {ns} surface "
               f"dofs, p-MG orders {prob.precond.orders}, coarse {coarse}, "
@@ -1578,13 +1628,28 @@ def phase_diffraction(report: dict) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
-        t0 = time.perf_counter()
-        t, y, phi = prob.run(n_steps=CYL_STEPS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with _count_vcycles() as vcycles:
+            t0 = time.perf_counter()
+            t, y, phi = prob.run(n_steps=CYL_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         counts = _read_counts()
         stats = prob.last_solver_stats
         prob.check_state(y, phi)
+        # the fused coarse solve: one launch a V-cycle, in the dtype of the
+        # preconditioner's operator (float32 in the mixed run), and in the
+        # float64 run one V-cycle an iteration and one a solve
+        cc_dtype = str(prob.precond.levels[-1].op.dtype).removeprefix(
+            "torch.")
+        cc_want = {cc_dtype: vcycles[0]}
+        if counts["coarse_cheb_by_dtype"] != cc_want or (
+                dtype == "float64"
+                and vcycles[0] != stats.total_iters + stats.n_solves):
+            raise AssertionError(
+                f"{dtype}: coarse_cheb launches "
+                f"{counts['coarse_cheb_by_dtype']} over {vcycles[0]} "
+                f"V-cycles ({stats.total_iters} iterations, "
+                f"{stats.n_solves} solves)")
         if stats.unconverged:
             raise AssertionError(f"a solve did not converge: {stats}")
         if stats.n_solves != 4 * CYL_STEPS:
@@ -1601,7 +1666,8 @@ def phase_diffraction(report: dict) -> int:
         print(f"[4] {dtype}: {CYL_STEPS} RK4 steps = {stats.n_solves} solves "
               f"to t = {t:.5f}: wall {wall:.3f} s, {stats.total_iters} inner "
               f"CG iterations (max {stats.max_iters} per solve), "
-              f"{stats.syncs} host syncs, launches {counts}, max|eta| "
+              f"{stats.syncs} host syncs, {vcycles[0]} V-cycles, launches "
+              f"{counts}, max|eta| "
               f"{amax:.5f}, peak device memory {peak / 1e6:.0f} MB")
         b3b_by_p = {p: c / CYL_STEPS
                     for p, c in counts["pa_apply_element_by_p"].items()}
@@ -1619,6 +1685,7 @@ def phase_diffraction(report: dict) -> int:
             dofs=n, surface_dofs=ns, setup_s=setup, wall_s=wall,
             n_solves=stats.n_solves, total_inner_iters=stats.total_iters,
             max_iters=stats.max_iters, syncs=stats.syncs, launches=counts,
+            vcycles=vcycles[0], coarse_route=coarse,
             b3b_calls_per_step_by_p=b3b_by_p,
             max_abs_eta=amax, t=t, peak_mem_bytes=peak,
             lmax=prob.precond.lmax))
@@ -1717,8 +1784,7 @@ def phase_general_mesh(report: dict, ss_err: float) -> dict:
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     levels = prob.precond.levels
-    coarse = ("dense" if prob.precond._coarse_inv is not None
-              else "Chebyshev-16")
+    coarse = prob.precond.coarse_route
     print(f"[5A] setup {setup:.2f} s: {prob.space.mesh.n_elems} leaning "
           f"hexes, {prob.space.n_dofs} dofs {prob.space.dof_dims}, operator "
           f"{type(prob.op).__name__}, p-MG levels "
@@ -3216,6 +3282,137 @@ def phase_ranks(report: dict) -> dict:
     return out
 
 
+def phase_coarse_cheb(report: dict) -> dict:
+    import torch
+    from lpfem_torch.experiments.diffraction import build_problem
+    from lpfem_torch.kernels import coarse_cheb as kcc
+
+    # the kernel against the eager chain and its plain mirror on the card,
+    # on the coarse level of each of phase 4's runs: float64, and the mixed
+    # run's float32 preconditioner
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    errs = {}
+    for dtype, tol in (("mixed", 1e-5), ("float64", 1e-12)):
+        prob = build_problem("cuda", dtype=dtype, mesh=_study_mesh())
+        pm = prob.precond
+        if pm.coarse_route != "fused":
+            raise AssertionError(f"{dtype}: the study's coarse route is "
+                                 f"{pm.coarse_route!r}, not 'fused'")
+        cc = pm.coarse_solve
+        lv = pm.levels[-1]
+        ne, n = lv.op.space.elem_dofs.shape[0], lv.op.n_dofs
+        r = torch.randn(n, generator=gen, dtype=torch.float64).cuda().to(
+            lv.op.dtype) * lv.free
+        z = cc(r)
+        same = torch.equal(cc(r), z)
+        rel = {k: _rel_err(z, f(r))[1] for k, f in
+               (("eager", cc.chebyshev),
+                ("mirror", lambda v: kcc.coarse_cheb_mirror(v, cc)))}
+        name = str(lv.op.dtype).removeprefix("torch.")
+        print(f"[12] {dtype} run's coarse level p = 1 in {name}: {ne} "
+              f"elements, {n} dofs, cluster of {cc.clusters} blocks; fused "
+              f"vs eager Chebyshev-{cc.degree} {rel['eager']:.3e}, vs the "
+              f"plain mirror {rel['mirror']:.3e} of max|z| (limit {tol:g}), "
+              f"same bits twice {same}")
+        if not (max(rel.values()) <= tol and same):
+            raise AssertionError(f"coarse_cheb {name}: {rel} of max|z|, "
+                                 f"same {same}")
+        errs[name] = rel
+        if dtype == "mixed":
+            del prob, pm, cc, lv
+            torch.cuda.empty_cache()
+    eager = cc.chebyshev
+
+    # device ms per coarse solve, the kernel and the eager chain
+    ms = {"fused": _time_chain(cc, [(r,)]), "eager": _time_chain(eager,
+                                                                [(r,)])}
+    per = {k: _per_call(_profile_calls(f, [(r,)]))
+           for k, f in (("fused", cc), ("eager", eager))}
+    for k in ("fused", "eager"):
+        print(f"[12] {k} coarse solve: {ms[k]:.4f} ms a solve (CUDA events, "
+              f"30 solves), device {per[k]['launch_ms']:.4f} ms over "
+              f"{per[k]['kernels_per_call']:.1f} kernels, "
+              f"{per[k]['memsets'] / CHAIN:.1f} memsets, "
+              f"{per[k]['copies'] / CHAIN:.1f} copies a solve")
+    ne_max = cc.tables.eaddr.shape[2]
+    smem = kcc.smem_bytes(8, ne_max, cc.nd_max, cc.mult)
+    ptxas = {k: v for k, v in report.get("ptxas", {}).items()
+             if "coarse_cheb_kernel" in k}
+    print(f"[12] shared memory {smem} bytes a block (ne_max {ne_max}, "
+          f"nd_max {cc.nd_max}, {cc.mult} copies a dof at most); ptxas "
+          f"{ptxas}")
+
+    # device activities per V-cycle, fused and eager coarse solve
+    r0 = torch.randn(pm.levels[0].op.n_dofs, generator=gen,
+                     dtype=torch.float64).cuda() * pm.levels[0].free
+    vcycle = {}
+    for k, solve in (("fused", cc), ("eager", eager)):
+        pm.coarse_solve = solve
+        acts = _profile_calls(pm, [(r0,)])
+        vcycle[k] = dict(activities=sum(c for _, c, _ in acts) / CHAIN,
+                         **_per_call(acts))
+        print(f"[12] a V-cycle with the {k} coarse solve: "
+              f"{vcycle[k]['activities']:.1f} device activities "
+              f"({vcycle[k]['kernels_per_call']:.1f} kernels)")
+    pm.coarse_solve = cc
+
+    # the untraced step wall, fused and eager, from one state; the launches
+    # against the V-cycles
+    t, y, phi = prob.run(n_steps=1)
+    torch.cuda.synchronize()
+    steps, walls, iters = 3, {"fused": [], "eager": []}, {}
+    for k in ("fused", "eager", "eager", "fused"):
+        pm.coarse_solve = cc if k == "fused" else eager
+        before = sum(kcc.LAUNCHES.values())
+        with _count_vcycles() as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prob.run(n_steps=steps, t0=t, state=(y.clone(), phi.clone()))
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t0) / steps)
+        launched = sum(kcc.LAUNCHES.values()) - before
+        want = calls[0] if k == "fused" else 0
+        if launched != want:
+            raise AssertionError(f"{k}: {launched} coarse_cheb launches "
+                                 f"over {calls[0]} V-cycles")
+        iters.setdefault(k, prob.last_solver_stats.total_iters)
+        print(f"[12] {k}: {walls[k][-1]:.4f} s a step untraced, "
+              f"{calls[0]} V-cycles, {launched} coarse_cheb launches, "
+              f"{prob.last_solver_stats.total_iters} inner iterations")
+    pm.coarse_solve = cc
+    if iters["fused"] != iters["eager"]:
+        raise AssertionError(f"iterations differ: {iters}")
+    wf = statistics.median(walls["fused"])
+    we = statistics.median(walls["eager"])
+    vcs = calls[0] / steps
+    share = (we - wf + vcs * ms["fused"] / 1e3) / we
+    print(f"[12] untraced step: fused {wf:.4f} s, eager {we:.4f} s "
+          f"({100 * (1 - wf / we):.1f} % less); the eager coarse solve's "
+          f"share of its step {100 * share:.1f} % ({vcs:.0f} V-cycles a "
+          f"step)")
+    tank = report["ss_path"]["launches"]["coarse_cheb"]
+    print(f"[12] coarse_cheb launches in phase 3's tank: {tank}")
+    if tank != 0:
+        raise AssertionError(f"the tank launched coarse_cheb {tank} times")
+    # the bound: the metric, r, inv_diag, z and the tables read or written
+    # once; the element applies and updates of the degree - 1 steps
+    nbytes = 8 * (48 * ne + 3 * n) + 4 * (8 * ne + cc.mult * n + n)
+    flops = (cc.degree - 1) * (_element_flops(ne, 2, 2) + 6 * n)
+    bound_ms, bound_by = _bound(nbytes, flops, PEAK_FLOPS["float64"])
+    print(f"[12] bound {bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, "
+          f"{flops} flops) against {per['fused']['launch_ms']:.4f} ms")
+    out = dict(clusters=cc.clusters, smem_bytes=smem, ptxas=ptxas,
+               max_rel_err=errs, ms=ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               per_solve=per, vcycle=vcycle, step_walls=walls,
+               inner_iters=iters, vcycles_per_step=vcs,
+               eager_coarse_share=share, tank_launches=tank)
+    report["coarse_cheb"] = out
+    del prob
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import warnings
     # torch's notes that sparse CSR is beta / unchecked (the yardsticks)
@@ -3262,6 +3459,7 @@ def main() -> int:
     timed("10f glvis", phase_glvis)
     timed("10g drivers", phase_new_drivers)
     ranks = timed("11 ranks", phase_ranks)
+    coarse = timed("12 coarse solve", phase_coarse_cheb)
     report["total_s"] = time.perf_counter() - t_start
     element_orders = {
         "pa_apply_element": set(report["diffraction"]["float64"][
@@ -3275,6 +3473,7 @@ def main() -> int:
     print(f"total {report['total_s']:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    cyl_runs = [report["diffraction"][d] for d in ("float64", "mixed")]
     kernels = {"kernels": [
         dict(name="sep_apply", route="cuda",
              source="lpfem_torch/csrc/sep_apply.cu",
@@ -3318,6 +3517,25 @@ def main() -> int:
              three_step_device_ms=b2["three_step_device_ms"],
              b1_device_ms=b2["b1_device_ms"],
              **{k: b2[k] for k in keys}),
+        dict(name="coarse_cheb", route="cuda",
+             source="lpfem_torch/csrc/coarse_cheb.cu",
+             replaces="none: the eager Chebyshev-16 coarse solve",
+             launches=sum(sum(r["launches"]["coarse_cheb_by_dtype"].values())
+                          for r in cyl_runs),
+             launches_by_dtype={
+                 k: v for r in cyl_runs
+                 for k, v in r["launches"]["coarse_cheb_by_dtype"].items()},
+             vcycles=sum(r["vcycles"] for r in cyl_runs),
+             max_abs_err=None, max_rel_err=coarse["max_rel_err"],
+             ms=coarse["per_solve"]["fused"]["launch_ms"],
+             plain_ms=coarse["per_solve"]["eager"]["launch_ms"],
+             events_ms=coarse["ms"], bound_ms=coarse["bound_ms"],
+             bound_by=coarse["bound_by"], library_ms=None,
+             launches_per_call=coarse["per_solve"]["fused"][
+                 "kernels_per_call"],
+             vcycle_activities={k: v["activities"] for k, v in
+                                coarse["vcycle"].items()},
+             smem_bytes=coarse["smem_bytes"], ptxas=coarse["ptxas"]),
         dict(name="sep_apply_ds", route="cuda",
              source="lpfem_torch/csrc/sep_apply_ds.cu",
              replaces="lpfem/kernels/sep_apply_ds.py:291",

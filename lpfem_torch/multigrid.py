@@ -15,6 +15,13 @@ solve (inverted in float64 on the host) up to ``coarse_dense_limit`` dofs,
 else Chebyshev-16. The essential set is the free surface
 (``space.top_plane_dofs()``) on every level.
 
+The route of the coarse solve, ``PMultigrid.coarse_route``, follows from
+what the bottom level is: ``"dense"`` up to ``coarse_dense_limit`` dofs;
+above it ``"fused"`` where ``kernels.coarse_cheb.CoarseChebyshev.for_level``
+takes the level (a full-metric p = 1 ``ElementLaplace`` on a CUDA device
+that fits one thread-block cluster: the same Chebyshev-16 in one launch),
+else ``"chebyshev"`` (the eager :class:`ChebyshevSmoother`).
+
 Spans (:func:`~lpfem_torch.profiling.span`): ``multigrid.vcycle`` (one
 V-cycle) and ``multigrid.coarse``; details
 (:func:`~lpfem_torch.profiling.detail`): ``multigrid.L<i>.presmooth`` /
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from .elements import basis_1d, lagrange_eval
+from .kernels import coarse_cheb
 from .operators import laplace_operator
 from .profiling import detail, span
 
@@ -191,6 +199,11 @@ class PMultigrid:
     ``convert.smoother_lmax``); estimated when None. The Chebyshev coarse
     solve reuses the bottom level's value, which is what the reference's
     separate estimate on the same operator returns.
+
+    ``coarse_route``: ``"dense"``, ``"fused"`` or ``"chebyshev"`` (the
+    module docstring); on the fused route ``coarse_solve`` is a
+    ``kernels.coarse_cheb.CoarseChebyshev`` and its eager smoother is
+    ``coarse_solve.chebyshev``.
     """
 
     def __init__(self, fine_op, smooth_degree: int = 3,
@@ -266,11 +279,15 @@ class PMultigrid:
             self._coarse_inv = torch.tensor(np.linalg.inv(A)).to(
                 device=device, dtype=dtype)
             self.coarse_solve = lambda r: self._coarse_inv @ r
+            self.coarse_route = "dense"
         else:
             self._coarse_inv = None
-            self.coarse_solve = ChebyshevSmoother(
-                cl.apply_c, cl.inv_diag, self.lmax[-1],
-                degree=coarse_cheb_degree)
+            cheb = ChebyshevSmoother(cl.apply_c, cl.inv_diag, self.lmax[-1],
+                                     degree=coarse_cheb_degree)
+            fused = coarse_cheb.CoarseChebyshev.for_level(cl.op, cl.inv_diag,
+                                                          cheb)
+            self.coarse_solve = cheb if fused is None else fused
+            self.coarse_route = "chebyshev" if fused is None else "fused"
 
     def _vcycle(self, li: int, r: torch.Tensor) -> torch.Tensor:
         if li == len(self.levels) - 1:

@@ -25,8 +25,15 @@ GPU (``-k gloo``) against the stacked run, 1e-10 of max|y|. The spans'
 stream markers (``-k spans``): CUDA events on the card's stream, under a
 host and a device-only profile, with the answers bit for bit as untraced;
 the details' markers only when asked for; a sharded problem built on the
-host marks the card's stream.
+host marks the card's stream. The fused Chebyshev coarse solve (``-k
+coarse``) on the study's p = 1 level (8,730 dofs) against the eager chain
+and its plain mirror on the card, 1e-12 of max|z| in float64 (1e-5 in
+float32), alone and in a V-cycle of the p = 4 hierarchy; one launch a
+coarse solve and no B3b launch at p = 1; a level past one cluster's shared
+memory takes the eager route.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -37,11 +44,13 @@ from lpfem_torch.cylmesh import make_half_cylinder_tank
 from lpfem_torch.ds import DS, SeparableDS, ds_from_f64, ds_to_f64
 from lpfem_torch.experiments.diffraction import build_problem
 from lpfem_torch.experiments.leaning_tank import leaning_tank
+from lpfem_torch.kernels import coarse_cheb as kcc
 from lpfem_torch.kernels import lattice_apply as klat
 from lpfem_torch.kernels import pa_apply as kpa
 from lpfem_torch.kernels import sep_apply as ksep
 from lpfem_torch.kernels import sep_apply_ds as kds
 from lpfem_torch.mesh import save_mfem
+from lpfem_torch.multigrid import PMultigrid
 from lpfem_torch.operators import (AffineLatticeLaplace, ElementLaplace,
                                    SeparableLattice)
 from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace, grid_lines
@@ -924,3 +933,73 @@ def test_spans_of_a_sharded_problem_mark_the_card(cuda):
     tab = rec.table()
     assert 0.0 < tab["solvers.cg_iteration"].stream < \
         tab["timestep.step"].stream
+
+
+@functools.lru_cache(maxsize=None)
+def _study_mesh():
+    from lpfem_torch.experiments.diffraction import study_mesh
+    return study_mesh()
+
+
+def _study_pmg(p, dtype, **kw):
+    """PMultigrid on the study tank at order ``p`` on the card."""
+    op = ElementLaplace(CurvedLatticeSpace(_study_mesh(), p), dtype, "cuda")
+    return PMultigrid(op, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_coarse_cheb_matches_eager_chain(cuda, dtype, tol):
+    """The study's p = 1 level (8,730 dofs) alone: the fused route, one
+    launch, against the eager Chebyshev-16 it was built from."""
+    pm = _study_pmg(1, dtype)
+    assert pm.coarse_route == "fused" and pm.levels[-1].op.n_dofs == 8730
+    cc = pm.coarse_solve
+    assert isinstance(cc, kcc.CoarseChebyshev) and cc.degree == 16
+    lv = pm.levels[-1]
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    r = torch.randn(lv.op.n_dofs, generator=gen, dtype=torch.float64)
+    r = r.to(device=cuda, dtype=dtype) * lv.free
+    z = cc(r)
+    for z_ref in (cc.chebyshev(r), kcc.coarse_cheb_mirror(r, cc)):
+        rel = float((z - z_ref).abs().max() / z_ref.abs().max())
+        assert rel < tol, rel
+    assert torch.equal(cc(r), z)                  # no atomics: the same bits
+
+
+@pytest.mark.cuda
+def test_fused_coarse_vcycle_matches_eager_route_and_counts_one_launch(cuda):
+    """One V-cycle of the study's p = 4 hierarchy in float64 with the fused
+    coarse solve against the same hierarchy with the eager one, 1e-12; the
+    fused V-cycle makes one coarse launch and no B3b launch at p = 1."""
+    pm = _study_pmg(4, torch.float64)
+    assert pm.orders == [4, 2, 1] and pm.coarse_route == "fused"
+    n = pm.levels[0].op.n_dofs
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    r = torch.randn(n, generator=gen, dtype=torch.float64).to(cuda) \
+        * pm.levels[0].free
+    before, by_p = dict(kcc.LAUNCHES), dict(kpa.LAUNCHES_BY_P)
+    z = pm(r)
+    torch.cuda.synchronize()
+    assert kcc.LAUNCHES["float64"] == before.get("float64", 0) + 1
+    grew = {p: c - by_p.get(p, 0) for p, c in kpa.LAUNCHES_BY_P.items()}
+    assert grew.get(1, 0) == 0 and grew[4] > 0 and grew[2] > 0
+    pm.coarse_solve = pm.coarse_solve.chebyshev
+    z_ref = pm(r)
+    assert kpa.LAUNCHES_BY_P[1] > by_p.get(1, 0)  # the eager chain: B3b p=1
+    rel = float((z - z_ref).abs().max() / z_ref.abs().max())
+    assert rel < 1e-12, rel
+
+
+@pytest.mark.cuda
+def test_coarse_route_falls_back_past_the_budget(cuda):
+    """A p = 1 curved level past one cluster's shared memory (35,328
+    elements, 45,355 dofs) keeps the eager Chebyshev-16."""
+    from lpfem_torch.experiments.diffraction import study_mesh
+    op = ElementLaplace(CurvedLatticeSpace(study_mesh(n_theta=192, nz=4), 1),
+                        torch.float64, cuda)
+    assert (op.space.elem_dofs.shape[0], op.n_dofs) == (35328, 45355)
+    pm = PMultigrid(op, h_coarsen_min_dofs=10 ** 9)
+    assert pm.coarse_route == "chebyshev"
+    assert not kcc.fits(35328, 45355, 1, 2, torch.float64, op.fold.shape[1])

@@ -6,6 +6,12 @@ level below it; the coarse solve is the dense inverse or (with a tiny dense
 limit) Chebyshev-16. Both hierarchies get lpfem's per-level lambda_max, so
 one V-cycle is the same float64 arithmetic up to summation order: 1e-12
 relative to max|z|.
+
+The fused coarse solve (``kernels.coarse_cheb``) on the small cylinder's
+p = 1 level: its plain mirror (the kernel's partition, per-block E-vectors,
+fold in holder order and update) against the eager Chebyshev-16 from zero,
+1e-13 relative to max|z| in float64 and 1e-5 in float32 (other summation
+orders over 16 steps); its tables exactly.
 """
 
 import functools
@@ -21,11 +27,17 @@ from lpfem.operators import LaplacePA
 from lpfem.space import H1Space, SurfaceSpace as LSurfaceSpace
 
 from lpfem_torch import convert
+from lpfem_torch.cylmesh import make_half_cylinder_tank
+from lpfem_torch.kernels import coarse_cheb as kcc
 from lpfem_torch.multigrid import ChebyshevSmoother, PMultigrid, estimate_lmax
-from lpfem_torch.operators import SeparableLattice
-from lpfem_torch.space import LatticeSpace, grid_lines
+from lpfem_torch.operators import ElementLaplace, SeparableLattice, _fold_table
+from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace, grid_lines
 
 NX, NY, NZ, P = 8, 2, 4, 2
+# the small cylinder tank of tests/test_torch_cylinder.py (SMALL): 72 curved
+# hexes, 182 dofs at p = 1
+CYL = dict(Lx=12.0, Ly=6.0, h=1.0 / (2.0 * np.pi), cx=4.0, a=0.5, n_theta=12,
+           n_r=6, nz=1, geom_order=2, grading=1.25, dr_max=None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,3 +104,100 @@ def test_estimate_lmax_of_a_diagonal_operator():
     lam = estimate_lmax(lambda v: d * v, torch.ones_like(d), iters=200,
                         safety=1.0)
     assert lam == pytest.approx(4.0, rel=1e-3)
+
+
+@functools.lru_cache(maxsize=None)
+def _cylinder_pmg(dtype):
+    """The small cylinder at p = 2 on the CPU with the Chebyshev coarse solve
+    forced on its p = 1 level."""
+    st = CurvedLatticeSpace(make_half_cylinder_tank(**CYL), 2)
+    return PMultigrid(ElementLaplace(st, dtype, "cpu"), coarse_dense_limit=10)
+
+
+@pytest.mark.parametrize("clusters", [1, 8, 16])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-5)])
+def test_coarse_cheb_mirror_matches_chebyshev(dtype, tol, clusters):
+    pm = _cylinder_pmg(dtype)
+    assert pm.orders == [2, 1] and pm.coarse_route == "chebyshev"
+    cl, cheb = pm.levels[-1], pm.coarse_solve
+    assert isinstance(cheb, ChebyshevSmoother) and cheb.degree == 16
+    cc = kcc.CoarseChebyshev(cl.op, cl.inv_diag, cheb, clusters)
+    rng = np.random.default_rng(clusters)
+    for r in (torch.tensor(rng.standard_normal(cl.op.n_dofs), dtype=dtype),
+              torch.tensor(rng.standard_normal(cl.op.n_dofs),
+                           dtype=dtype) * cl.free):
+        z_ref = cheb(r)
+        before = dict(kcc.LAUNCHES)
+        z = cc(r)                                 # CPU tensors: the mirror
+        assert kcc.LAUNCHES == before             # and no kernel launch
+        rel = float((z - z_ref).abs().max() / z_ref.abs().max())
+        assert rel < tol, rel
+
+
+@pytest.mark.parametrize("clusters", [1, 8, 16])
+def test_coarse_cheb_partition_tables(clusters):
+    op = _cylinder_pmg(torch.float64).levels[-1].op
+    ed, n = op.space.elem_dofs, op.n_dofs
+    fold = _fold_table(ed, n)
+    top = op.space.top_plane_dofs()
+    t = kcc.partition(ed, fold, top, clusters)
+    C, L, ne_max = t.eaddr.shape
+    m, nd_max = t.ftab.shape[1:]
+    assert (C, L, m) == (clusters, 8, fold.shape[1]) and nd_max % 4 == 0
+    mask = (1 << kcc.RANK_SHIFT) - 1
+    # every element in one block, in order: contiguous ranges
+    assert t.elem_start[0] == 0 and t.elem_start[-1] == ed.shape[0]
+    assert np.all(np.diff(t.elem_start) >= 0)
+    np.testing.assert_array_equal(t.counts[:, 0], np.diff(t.elem_start))
+    # every dof owned once
+    own = t.gdof >= 0
+    np.testing.assert_array_equal(np.sort(t.gdof[own]), np.arange(n))
+    np.testing.assert_array_equal(t.counts[:, 1], own.sum(axis=1))
+    # the node addresses name each node's owner and slot, -1 on the surface
+    e = np.arange(ed.shape[0])
+    blk = np.searchsorted(t.elem_start, e, side="right") - 1
+    a = t.eaddr[blk, :, e - t.elem_start[blk]]                  # [ne, 8]
+    is_top = np.isin(ed, top)
+    np.testing.assert_array_equal(a < 0, is_top)
+    np.testing.assert_array_equal(
+        t.gdof[a[~is_top] >> kcc.RANK_SHIFT, a[~is_top] & mask], ed[~is_top])
+    # each free dof's copies: its holders in ascending element order, the
+    # positions of operators._fold_table; a free-surface dof is marked
+    rank, slot = np.nonzero(own)
+    dof = t.gdof[rank, slot]
+    f = t.ftab[rank, :, slot]                                   # [n, m]
+    ess = np.isin(dof, top)
+    assert np.all(f[ess, 0] == kcc.ESS) and np.all(f[ess, 1:] == -1)
+    ok = f[~ess] >= 0
+    r_, s_ = f[~ess] >> kcc.RANK_SHIFT, f[~ess] & mask
+    pos = ((t.elem_start[r_] + s_ % ne_max) * L + s_ // ne_max)
+    want = fold[dof[~ess]]
+    np.testing.assert_array_equal(ok, want < ed.size)
+    np.testing.assert_array_equal(np.where(ok, pos, -1),
+                                  np.where(want < ed.size, want, -1))
+
+
+@pytest.mark.parametrize("case", ["tank", "cylinder_cpu"])
+def test_coarse_route(case):
+    if case == "tank":
+        pm = _port(100, None)
+        assert pm.coarse_route == "dense" and pm._coarse_inv is not None
+    else:
+        pm = _cylinder_pmg(torch.float64)
+        # a full-metric p = 1 level the kernel would take, on CPU tensors
+        op = pm.levels[-1].op
+        assert kcc.fits(op.space.elem_dofs.shape[0], op.n_dofs, 1, 2,
+                        torch.float64, op.fold.shape[1])
+        assert pm.coarse_route == "chebyshev"
+        assert isinstance(pm.coarse_solve, ChebyshevSmoother)
+
+
+@pytest.mark.parametrize("ne,n_dofs,p,q,dtype,mult,want", [
+    (4224, 8730, 1, 2, torch.float64, 4, True),     # the study's coarse level
+    (4224, 8730, 1, 2, torch.float32, 4, True),
+    (4224, 8730, 2, 3, torch.float64, 4, False),    # not p = 1
+    (35328, 45355, 1, 2, torch.float64, 8, False),  # past the budget
+])
+def test_coarse_cheb_fits(ne, n_dofs, p, q, dtype, mult, want):
+    assert kcc.fits(ne, n_dofs, p, q, dtype, mult) == want
