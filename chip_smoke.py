@@ -13,9 +13,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    <= 1e-13, float <= 1e-5.
    - ``sep_apply`` (B1, one fused launch per apply; float and double) against
      ``sep_apply_reference``, and twice on one input for bitwise equality:
-     p = 1, 2, 4 (compiled fixed) and 3, 5..10 (the general instantiation)
-     on periodic and non-periodic tanks, and on the stationary study's tank
-     (8p x (p+1) x (2p+1), the lattices phase 8 runs) at every p = 1..10
+     p = 1, 2, 4, 8 (compiled fixed) and 3, 5..7, 9, 10 (the general
+     instantiation) on periodic and non-periodic tanks, and on the
+     stationary study's tank (8p x (p+1) x (2p+1), the lattices phase 8
+     runs) at every p = 1..10
      with its device time, plain time and bound per order; p = 1, 2, 3, 4,
      6 on edge lattices with random bands
      (Dx = 2p+1 periodic; an odd Dx with Dy and Dz no multiples of the
@@ -26,7 +27,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      median of 5 chains of 30 applies timed with CUDA events, the bound per
      order, and the cuSPARSE SpMV of the assembled matrix at p = 4
      (assembled on the card from the element matrices of the same tank),
-     p = 2 and p = 1 with B1's ratio to it.
+     p = 2 and p = 1 with B1's ratio to it. At p = 8 on the order-8
+     tank's top lattice (1024 x 65 x 257, the benchmark cell
+     ``tank_p8.f64_refs2``), float64 and float32: checked, device time,
+     time per call, plain time, and the bound of ``benchmark.costs``.
    - ``pa_apply_element`` (B3b, on the column body; float and double) on
      the small cylinder tank at p = 1..4 with q = p+1 (compiled fixed) and
      (p, q) = (2, 4), (5, 6) (the general instantiation), real and random
@@ -595,7 +599,7 @@ def phase_sep_apply(report: dict) -> dict:
 
     lz = 1.0 / (2 * 3.141592653589793)
     small = []
-    # p = 1, 2, 4 compiled fixed; the rest to MAX_P the general
+    # p = 1, 2, 4, 8 compiled fixed; the rest to MAX_P the general
     # instantiation
     for per, nx, lx in ((True, 6, 1.0), (False, 5, 12.0)):
         for p in range(1, ksep.MAX_P + 1):
@@ -748,7 +752,58 @@ def phase_sep_apply(report: dict) -> dict:
             if li == 0 and dtype == torch.float32 and ess:
                 fine_f32 = row
     report["sep_apply_times"] = times
+    report["sep_apply_p8_times"] = _sep_apply_p8_rows(check)
     return fine_f32
+
+
+def _sep_apply_p8_rows(check) -> list:
+    """B1 at p = 8 on the order-8 tank's top lattice (1024 x 65 x 257,
+    x periodic, the benchmark cell ``tank_p8.f64_refs2``), float64 (the
+    cell's) and float32: against the plain version and twice for the same
+    bits (``check``), device time, time per call, plain time, and the
+    bound from the benchmark's own cost functions
+    (``benchmark.costs.roofline``: float64 flops at 34e12/s)."""
+    import torch
+
+    import lpfem_torch
+    from benchmark.costs import roofline
+    from lpfem_torch.kernels.sep_apply import (choose_tiles, sep_apply,
+                                               sep_apply_reference)
+    from lpfem_torch.space import LatticeSpace
+
+    sp = LatticeSpace.from_config(lpfem_torch.preset(
+        "scaling_base", order=8, ref_levels=2))
+    dims = "x".join(str(d) for d in sp.dof_dims[::-1])
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        op, x, abs_err = check(sp, dtype, True, f"order-8 tank p=8 {dims}")
+        b1 = lambda v: sep_apply(v, op.bands, op.periodic, True)
+        ms = _time_chain(b1, [(x,)])
+        acts = _profile_calls(b1, [(x,)])
+        dev = _device_ms(b1, [(x,)], B1_KERNEL, acts)
+        plain = _time_chain(lambda v: sep_apply_reference(
+            v, op.bands, op.periodic, True), [(x,)])
+        dt = str(dtype)[6:]
+        nbytes, flops = roofline.b1_cost(sp.dof_dims, 8, x.element_size())
+        bound = 1e3 * roofline.least_seconds(nbytes, flops, dt)
+        by = ("bytes" if nbytes / roofline.HBM_BYTES_PER_S
+              >= flops / roofline.PEAK_FLOPS[dt] else "operations")
+        kernel = sorted({_short(k) for k, _, _ in acts
+                         if any(n in k for n in B1_KERNEL)})
+        row = dict(p=8, dims=dims, dtype=dt, ess_top=True,
+                   ms=dev if dev is not None else ms, device_ms=dev,
+                   call_ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                   max_abs_err=abs_err, kernel=kernel,
+                   tiles=choose_tiles(sp.dof_dims, 8, x.element_size()))
+        rows.append(row)
+        print(f"[2] time sep_apply order-8 tank p=8 {dims} {dt} ess_top=1 "
+              f"{kernel} tiles {row['tiles'][:3]}: kernel {row['ms']:.4f} ms "
+              f"on the device ({ms:.4f} ms per call), plain {plain:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}), "
+              f"{100 * bound / row['ms']:.1f} % of it")
+        del op, x
+        torch.cuda.empty_cache()
+    return rows
 
 
 @functools.lru_cache(maxsize=None)

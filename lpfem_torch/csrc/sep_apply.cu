@@ -55,11 +55,15 @@
 // one input give the same bits. Indices are 32-bit (the wrapper checks
 // numel < 2^31); each thread decomposes its position once, not per tap.
 //
-// Orders. P is a template parameter for p = 1, 2, 4, the orders the port's
-// paths run: the tap loops unroll, and each thread keeps the x bands of its
+// Orders. P is a template parameter for p = 1, 2, 4 and 8, the orders the
+// port's paths run (the tanks' p-multigrid 4 -> 2 -> 1 and 8 -> 4 -> 2 ->
+// 1): the tap loops unroll, and each thread keeps the x bands of its
 // column, the y bands of its row and the ring in registers. P = 0 is the
-// general instantiation for 1 <= p <= 10: the same kernel with the loops
-// unrolled to 21 taps under a guard, the x and y bands read through L1.
+// general instantiation for 1 <= p <= 10 (3, 5..7, 9, 10): the same kernel
+// with the loops unrolled to 21 taps under a guard, the x and y bands read
+// through L1. On the order-8 tank's top lattice (1024 x 65 x 257) the
+// fixed p = 8 runs two blocks of at most 160 threads per SM and 8-column
+// tiles in either dtype (the general one: three blocks, 4 or 8 columns).
 //
 // Tiles (chosen by lpfem_torch.kernels.sep_apply.choose_tiles and passed in,
 // with the block's shared-memory bytes; the entry refuses tiles past the
@@ -71,7 +75,10 @@
 // ss.cpp fine lattice (129 x 33 x 512, p = 4): float 8 x 33 x 26, 320
 // blocks of 264 threads, 25 kB of shared memory per block (z halo
 // recomputed: 1.31x the x and y work); double 4 x 33 x 43, 384 blocks of 132
-// threads (1.19x), 25 kB. At p = 10 in double a block stays under 100 kB.
+// threads (1.19x), 25 kB. At p = 8 Tx = 8 in either dtype and at most 160
+// threads: on the order-8 tank's top lattice (1024 x 65 x 257) 8 x 17 x
+// 257, 512 blocks of 136 threads, 27 kB in double. At p = 10 in double a
+// block stays under 100 kB.
 // The u row stride S is padded so that the rows a warp reads fall in
 // distinct banks.
 //
@@ -103,10 +110,16 @@ constexpr int kMaxP = 10;          // the general instantiation's reach
 
 // Threads per block at most (Tx * Ty), and the blocks an SM must hold at
 // once, which caps the registers: 3 x 288 float threads at <= 75, 3 x 160
-// double threads at <= 136.
-template <typename T>
-constexpr int max_threads() { return sizeof(T) == 4 ? 288 : 160; }
-constexpr int kMinBlocks = 3;
+// double threads at <= 136. At p = 8, whose x and y bands and ring hold
+// 6 x 17 values a thread, 2 x 160 threads in either dtype at <= 204 (the
+// double bands then spill ~400 bytes a thread; three blocks, or the bands
+// read through L1, were slower on the order-8 tank, PERF.md section 6).
+template <typename T, int P>
+__host__ __device__ constexpr int max_threads() {
+  return P == 8 || sizeof(T) == 8 ? 160 : 288;
+}
+template <int P>
+__host__ __device__ constexpr int min_blocks() { return P == 8 ? 2 : 3; }
 constexpr int kStages = 3;         // u planes in shared memory
 
 // A block's shared memory, as byte offsets from its start: u [kStages][H][S],
@@ -141,7 +154,7 @@ struct Shards {
 };
 
 template <typename T, int P>
-__global__ void __launch_bounds__(max_threads<T>(), kMinBlocks)
+__global__ void __launch_bounds__(max_threads<T, P>(), min_blocks<P>())
 sep_tile_kernel(const T* __restrict__ x, T* __restrict__ y,
                 const T* __restrict__ kx, const T* __restrict__ mx,
                 const T* __restrict__ ky, const T* __restrict__ my,
@@ -419,7 +432,8 @@ int dispatch(const void* x, void* y, const void* kx, const void* mx,
              void* stream) {
   const long long n = (long long)Dx * Dy * Dz;
   if (p < 1 || p > kMaxP || Tx < 1 || Ty < 1 || Tz < 1 ||
-      Tx * Ty > max_threads<T>() || S < Tx + 2 * p ||
+      Tx * Ty > (p == 8 ? max_threads<T, 8>() : max_threads<T, 0>()) ||
+      S < Tx + 2 * p ||
       (periodic_x && Dx <= 2 * p) || smem != TileSmem<T>(p, Tx, Ty, S).total ||
       ndev < 1 || sh.xs < n || sh.ys < n || sh.zt >= Dz ||
       (sh.scal != nullptr && (sh.p0 == nullptr || sh.yhalo == nullptr ||
@@ -440,6 +454,7 @@ int dispatch(const void* x, void* y, const void* kx, const void* mx,
     case 1: return LPFEM_SEP_LAUNCH(1);
     case 2: return LPFEM_SEP_LAUNCH(2);
     case 4: return LPFEM_SEP_LAUNCH(4);
+    case 8: return LPFEM_SEP_LAUNCH(8);
     default: return LPFEM_SEP_LAUNCH(0);
   }
 #undef LPFEM_SEP_LAUNCH

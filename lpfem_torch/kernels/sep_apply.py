@@ -54,6 +54,9 @@ LAUNCHES_SHARD_BY_P: dict[int, int] = {}
 # the launch.
 MAX_P = 10            # the general instantiation's reach
 MAX_THREADS = {4: 288, 8: 160}   # Tx * Ty by itemsize (__launch_bounds__)
+# p = 8's fixed instantiation (bands and ring of 17 taps in registers, two
+# blocks per SM): Tx and the threads of a block, in either dtype
+P8_TX, P8_THREADS = 8, 160
 TARGET_BLOCKS = 264   # two blocks per SM of an H100 (132 SMs)
 SMEM_LIMIT = 232_448  # shared memory a block may use on Hopper (227 KB)
 
@@ -153,15 +156,20 @@ def choose_tiles(dims, p: int, itemsize: int,
     """``(Tx, Ty, Tz, S)`` of the kernel for the lattice ``dims = (Dx, Dy,
     Dz)``: Tx = 8 columns in float, 4 in double; Ty the whole y axis while
     ``Tx * Dy <= MAX_THREADS[itemsize]`` (the y halo then lies past the
-    ends), else
-    the axis split evenly; the z-chunk Tz such that the grid (over
+    ends), else the axis split evenly; at p = 8 Tx = ``P8_TX`` and
+    ``P8_THREADS`` in place of ``MAX_THREADS`` (a tile twice as wide reads
+    fewer x halo columns per output); the z-chunk Tz such that the grid (over
     ``nbatch`` stacked lattices in shard mode) has at least
     ``TARGET_BLOCKS`` blocks, chunks as even as Dz allows; S the u tile's
     row stride, at least Tx + 2p and congruent to Tx modulo the row width
     of a bank line, so the rows a warp reads fall in distinct banks."""
     Dx, Dy, Dz = dims
-    tx = min(8 if itemsize == 4 else 4, Dx)
-    rows = MAX_THREADS[itemsize] // tx
+    if p == 8:
+        tx = min(P8_TX, Dx)
+        rows = P8_THREADS // tx
+    else:
+        tx = min(8 if itemsize == 4 else 4, Dx)
+        rows = MAX_THREADS[itemsize] // tx
     ty = -(-Dy // -(-Dy // rows))
     nxy = -(-Dx // tx) * -(-Dy // ty) * nbatch
     chunks = min(Dz, max(1, -(-TARGET_BLOCKS // nxy)))

@@ -23,7 +23,9 @@ that fits one thread-block cluster: the same Chebyshev-16 in one launch),
 else ``"chebyshev"`` (the eager :class:`ChebyshevSmoother`).
 
 Spans (:func:`~lpfem_torch.profiling.span`): ``multigrid.vcycle`` (one
-V-cycle) and ``multigrid.coarse``; details
+V-cycle), ``multigrid.lower`` (its descent below the top level, so that
+the V-cycle's self time is the top level's own smoothers, residual and
+transfers) and ``multigrid.coarse``; details
 (:func:`~lpfem_torch.profiling.detail`): ``multigrid.L<i>.presmooth`` /
 ``.residual`` / ``.restrict`` / ``.prolong`` / ``.postsmooth`` (level
 ``i``'s stages, ``L0`` the finest; ``.prolong`` includes the correction's
@@ -304,7 +306,13 @@ class PMultigrid:
             rf = r - lv.apply_c(z)
         with detail(restrict):
             rc = tr.restrict(lv, coarse, rf)
-        zc = self._vcycle(li + 1, rc)
+        if li == 0:
+            # the levels below the top one: the top level's own work is
+            # then the self time of multigrid.vcycle
+            with span("multigrid.lower"):
+                zc = self._vcycle(1, rc)
+        else:
+            zc = self._vcycle(li + 1, rc)
         with detail(prolong):
             z = z + tr.prolong(lv, coarse, zc)
         with detail(post):

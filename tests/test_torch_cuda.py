@@ -30,7 +30,9 @@ coarse``) on the study's p = 1 level (8,730 dofs) against the eager chain
 and its plain mirror on the card, 1e-12 of max|z| in float64 (1e-5 in
 float32), alone and in a V-cycle of the p = 4 hierarchy; one launch a
 coarse solve and no B3b launch at p = 1; a level past one cluster's shared
-memory takes the eager route.
+memory takes the eager route. B1 at p = 8 on the benchmark's order-8 tank
+(``-k order8``, 1024 x 65 x 257): 1e-13 of max|y| in float64, 1e-6 in
+float32, the same bits twice.
 """
 
 import functools
@@ -196,9 +198,9 @@ def _conv_tank(p):
 @pytest.mark.parametrize("tank", ["laplace_conv", "periodic"])
 def test_kernel_matches_plain_version_at_the_general_orders(cuda, tank, p,
                                                             dtype, tol):
-    """B1 at the orders only the general instantiation runs (the
-    stationary p-sweep reaches them), on the study's tank and a periodic
-    tank, bitwise equal on a second call."""
+    """B1 at the orders above 4 (the general instantiation, and p = 8's
+    fixed one; the stationary p-sweep reaches them), on the study's tank
+    and a periodic tank, bitwise equal on a second call."""
     sp = _conv_tank(p) if tank == "laplace_conv" else _space(True, p, nx=5)
     op = SeparableLattice(sp, dtype, cuda)
     gen = torch.Generator(device=cuda).manual_seed(100 + p)
@@ -213,6 +215,30 @@ def test_kernel_matches_plain_version_at_the_general_orders(cuda, tank, p,
         torch.cuda.synchronize()
         err = float((y - y_ref).abs().max() / y_ref.abs().max())
         assert err < tol, (ess, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-13)])
+def test_kernel_at_p8_on_the_order8_tank(cuda, dtype, tol):
+    """B1 at p = 8 on the top lattice of the benchmark's order-8 tank
+    (1024 x 65 x 257, x periodic, ``ess_top``): against the plain version
+    and bitwise equal on a second call, one launch counted at p = 8."""
+    sp = LatticeSpace.from_config(lpfem_torch.preset(
+        "scaling_base", order=8, ref_levels=2))
+    assert sp.dof_dims == (1024, 65, 257)
+    op = SeparableLattice(sp, dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(op.dof_dims[::-1], generator=gen, device=cuda,
+                    dtype=torch.float64).to(dtype)
+    before = ksep.LAUNCHES_BY_P.get(8, 0)
+    y = ksep.sep_apply(x, op.bands, op.periodic, True)
+    assert ksep.LAUNCHES_BY_P[8] == before + 1
+    assert torch.equal(y, ksep.sep_apply(x, op.bands, op.periodic, True))
+    y_ref = ksep.sep_apply_reference(x, op.bands, op.periodic, True)
+    torch.cuda.synchronize()
+    err = float((y - y_ref).abs().max() / y_ref.abs().max())
+    assert err < tol, err
 
 
 @pytest.mark.cuda

@@ -10,6 +10,9 @@ counters on the CPU.
 - The self-time arithmetic on synthetic nested spans and details (a fake
   clock), with the details' markers off and on.
 - ``Record.first``: the first of two traced passes alone.
+- ``multigrid.lower``, once a V-cycle: the V-cycle's self time is then the
+  top level's stages (a clock that ticks once a reading), and the reader
+  ``multigrid.fine_level_share`` reads it, and nothing without the span.
 - The benchmark's span readers on tiny traced ``run_cell``s, one record a
   run.
 """
@@ -101,8 +104,9 @@ def test_counts_match_the_solves(traced):
         "multigrid.vcycle", "multigrid.L0.presmooth",
         "multigrid.L0.residual", "multigrid.L0.restrict",
         "multigrid.L0.prolong", "multigrid.L0.postsmooth",
-        "multigrid.coarse"}
+        "multigrid.lower", "multigrid.coarse"}
     assert tab["multigrid.coarse"].calls == tab["multigrid.vcycle"].calls
+    assert tab["multigrid.lower"].calls == tab["multigrid.vcycle"].calls
     assert tab["solvers.ir_pass"].calls > tab["surface.solve"].calls
     details = {"solvers.exit_test", "operators.gather", "operators.fold"} | {
         k for k in tab if k.startswith("multigrid.L")}
@@ -146,6 +150,36 @@ def test_answers_bit_for_bit_with_recording_on(traced):
     y_off, y_on = traced["y"]
     phi_off, phi_on = traced["phi"]
     assert torch.equal(y_off, y_on) and torch.equal(phi_off, phi_on)
+
+
+L0_STAGES = ("presmooth", "residual", "restrict", "prolong", "postsmooth")
+
+
+def test_vcycle_self_time_is_the_top_level(monkeypatch):
+    """``multigrid.lower`` around the descent below the top level, once a
+    V-cycle: with the details unmarked (a benchmark run), the V-cycle's
+    self stream time is the top level's five stages, to one reading of the
+    clock at each of the seven boundaries between the V-cycle's markers
+    and its children's (a clock that ticks once a reading), and its
+    inclusive time is its self time and the descent's."""
+    ticks = iter(range(10 ** 9))
+    monkeypatch.setattr(profiling, "_clock", lambda: float(next(ticks)))
+    prob, (y0, phi0) = _tiny_problem()
+    with profile(activities=[ProfilerActivity.CPU]):
+        prob.run(n_steps=1, state=(y0, phi0))
+    tab = profiling.record().table()
+    vc, low = tab["multigrid.vcycle"], tab["multigrid.lower"]
+    assert vc.calls > 0 and low.calls == vc.calls
+    assert tab["multigrid.coarse"].calls == vc.calls
+    stages = sum(tab[f"multigrid.L0.{s}"].host for s in L0_STAGES)
+    assert all(tab[f"multigrid.L0.{s}"].calls == vc.calls
+               for s in L0_STAGES)
+    assert vc.stream_self == stages + 7 * vc.calls
+    assert vc.stream == vc.stream_self + low.stream
+    # the descent holds the coarse solve; the CG's self time leaves out the
+    # whole V-cycle as before
+    assert low.stream >= tab["multigrid.coarse"].stream > 0
+    profiling.reset()
 
 
 @pytest.mark.parametrize("marked", [False, True])
@@ -233,3 +267,31 @@ def test_readers_on_tiny_traced_runs_one_record_each():
                   "timestep.outside_solve_share",
                   "timestep.program_syncs_per_step"):
             assert rec["metrics"][n]["value"] == got[n]
+
+
+def test_fine_level_share_reads_the_top_level_alone():
+    """``multigrid.fine_level_share`` on a tiny traced run of the order-8
+    cell (cut to order 2: levels p = 2 and 1): above 0 and below the whole
+    V-cycle's share; nothing on a record without ``multigrid.lower`` (a
+    program that lacks the span) or without a record."""
+    from benchmark.checks.tiny import tiny_cell
+    from benchmark.harness import load_reader, run_cell
+
+    fine = load_reader("multigrid.fine_level_share")
+    cell = tiny_cell("tank_p8.f64_refs2")
+    cell.traffic["trace_steps"] = 1
+    rec = run_cell(cell, 2 ** 40 + 5, 1.0, True, torch.device("cpu"),
+                   log=lambda m: None)
+    got = rec["metrics"]["multigrid.fine_level_share"]["value"]
+    assert got == fine({"device_steps": 1})
+    whole = load_reader("multigrid.vcycle_share")({"device_steps": 1})
+    assert 0.0 < got < whole <= 100.0
+
+    rec = profiling.reset()
+    assert fine({"device_steps": 1}) is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.step(torch.device("cpu")):
+            with profiling.span("multigrid.vcycle"):
+                pass
+    assert rec.steps == 1 and fine({"device_steps": 1}) is None
+    profiling.reset()

@@ -124,7 +124,8 @@ def test_sep_mirror_wraps_a_short_periodic_axis(p, ess_top):
 @pytest.mark.parametrize("dims,p", [((512, 33, 129), 4), ((256, 17, 65), 2),
                                     ((128, 9, 33), 1), ((64, 5, 17), 1),
                                     ((21, 100, 30), 10), ((9, 3, 4), 4),
-                                    ((300, 70, 11), 3)])
+                                    ((300, 70, 11), 3),
+                                    ((1024, 65, 257), 8), ((20, 41, 7), 8)])
 def test_tile_chooser_covers_each_dof_once(dims, p, itemsize):
     """The blocks of choose_tiles write every output dof exactly once, a
     block has at most MAX_THREADS threads and fits the shared memory of a
@@ -132,6 +133,8 @@ def test_tile_chooser_covers_each_dof_once(dims, p, itemsize):
     tiles = ksep.choose_tiles(dims, p, itemsize)
     tx, ty, tz, s = tiles
     assert tx * ty <= ksep.MAX_THREADS[itemsize]
+    if p == 8:
+        assert tx == min(ksep.P8_TX, dims[0]) and tx * ty <= ksep.P8_THREADS
     assert s >= tx + 2 * p and (s - tx) % (32 * 4 // itemsize) == 0
     Dx, Dy, Dz = dims
     hits = torch.zeros(Dz, Dy, Dx, dtype=torch.int32)
