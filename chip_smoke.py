@@ -30,7 +30,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      p = 2 and p = 1 with B1's ratio to it. At p = 8 on the order-8
      tank's top lattice (1024 x 65 x 257, the benchmark cell
      ``tank_p8.f64_refs2``), float64 and float32: checked, device time,
-     time per call, plain time, and the bound of ``benchmark.costs``.
+     time per call, plain time, and the bound of ``benchmark.costs``; the
+     launches of the tensor-core route (DMMA, ``LAUNCHES_TC_BY_P[8]``:
+     every float64 launch, no float32 one) and ptxas's registers and
+     spills of ``sep_tile_kernel<double, 8>``.
    - ``pa_apply_element`` (B3b, on the column body; float and double) on
      the small cylinder tank at p = 1..4 with q = p+1 (compiled fixed) and
      (p, q) = (2, 4), (5, 6) (the general instantiation), real and random
@@ -752,30 +755,40 @@ def phase_sep_apply(report: dict) -> dict:
             if li == 0 and dtype == torch.float32 and ess:
                 fine_f32 = row
     report["sep_apply_times"] = times
-    report["sep_apply_p8_times"] = _sep_apply_p8_rows(check)
+    report["sep_apply_p8_times"] = _sep_apply_p8_rows(check, report)
     return fine_f32
 
 
-def _sep_apply_p8_rows(check) -> list:
+def _sep_apply_p8_rows(check, report) -> list:
     """B1 at p = 8 on the order-8 tank's top lattice (1024 x 65 x 257,
     x periodic, the benchmark cell ``tank_p8.f64_refs2``), float64 (the
     cell's) and float32: against the plain version and twice for the same
     bits (``check``), device time, time per call, plain time, and the
     bound from the benchmark's own cost functions
-    (``benchmark.costs.roofline``: float64 flops at 34e12/s)."""
+    (``benchmark.costs.roofline``: float64 flops at 34e12/s); the launches
+    of the tensor-core route among the row's launches (all of them in
+    float64, none in float32) and phase 1's ptxas line of the route."""
     import torch
 
     import lpfem_torch
     from benchmark.costs import roofline
+    from lpfem_torch.kernels import sep_apply as ksep
     from lpfem_torch.kernels.sep_apply import (choose_tiles, sep_apply,
                                                sep_apply_reference)
     from lpfem_torch.space import LatticeSpace
+
+    ptxas = [f"{k}: {v}" for k, v in report.get("ptxas", {}).items()
+             if "sep_tile_kernel<double, 8>" in k
+             or "sep_tile_kernelIdLi8E" in k]
+    print(f"[2] ptxas of the tensor-core route: {ptxas}")
 
     sp = LatticeSpace.from_config(lpfem_torch.preset(
         "scaling_base", order=8, ref_levels=2))
     dims = "x".join(str(d) for d in sp.dof_dims[::-1])
     rows = []
     for dtype in (torch.float64, torch.float32):
+        n0 = ksep.LAUNCHES_BY_P.get(8, 0)
+        tc0 = ksep.LAUNCHES_TC_BY_P.get(8, 0)
         op, x, abs_err = check(sp, dtype, True, f"order-8 tank p=8 {dims}")
         b1 = lambda v: sep_apply(v, op.bands, op.periodic, True)
         ms = _time_chain(b1, [(x,)])
@@ -795,12 +808,19 @@ def _sep_apply_p8_rows(check) -> list:
                    call_ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                    max_abs_err=abs_err, kernel=kernel,
                    tiles=choose_tiles(sp.dof_dims, 8, x.element_size()))
+        launched = ksep.LAUNCHES_BY_P.get(8, 0) - n0
+        row["tc_launches"] = ksep.LAUNCHES_TC_BY_P.get(8, 0) - tc0
+        row["launches"] = launched
+        row["ptxas"] = ptxas if dtype == torch.float64 else None
+        assert row["tc_launches"] == (launched if dtype == torch.float64
+                                      else 0), (row["tc_launches"], launched)
         rows.append(row)
         print(f"[2] time sep_apply order-8 tank p=8 {dims} {dt} ess_top=1 "
               f"{kernel} tiles {row['tiles'][:3]}: kernel {row['ms']:.4f} ms "
               f"on the device ({ms:.4f} ms per call), plain {plain:.4f} ms, "
               f"bound {bound:.4f} ms ({by}), "
-              f"{100 * bound / row['ms']:.1f} % of it")
+              f"{100 * bound / row['ms']:.1f} % of it; tensor-core launches "
+              f"{row['tc_launches']} of {launched}")
         del op, x
         torch.cuda.empty_cache()
     return rows

@@ -11,6 +11,9 @@ identity rows and columns on the top z-plane.
   counts each launch in ``LAUNCHES`` (and by order p in
   ``LAUNCHES_BY_P``). It takes the plain version only because its input
   lies on the CPU; on a CUDA tensor it launches the kernel or raises.
+  At p = 8 in float64 the kernel takes its tensor-core route (DMMA,
+  :func:`tensor_core_route`), whose launches ``LAUNCHES_TC_BY_P`` counts
+  by order, from both entries.
 - :func:`sep_apply_reference` is the plain PyTorch version, with the sums
   of ``SeparableLattice._axis/apply3`` in the same order.
 - :func:`choose_tiles` picks the kernel's tiles (one launch per apply: a
@@ -18,7 +21,10 @@ identity rows and columns on the top z-plane.
   z-chunk of ``Tz`` planes) and :func:`sep_apply_mirror` runs the same
   decomposition in plain PyTorch, so the CPU tests check what each block
   reads and sums: x tiles with a wrapped or zero halo, y tiles, z-chunks
-  whose halo planes are recomputed, and the ring of the last 2p+1 planes.
+  whose halo planes are recomputed, and the ring of the last 2p+1 planes
+  (on the tensor-core route: the dense banded tiles of the x, y and z
+  products and the window of 24 planes that each batch of 8 output planes
+  reads).
 - Shard mode (the TPU kernel's ``shard_scal`` / ``p0`` mode, run on every
   z-slab window level of ``lpfem_torch.shard``): :func:`sep_apply_shard`
   applies ``ndev`` stacked windows in one launch, each with its own z bands
@@ -41,12 +47,15 @@ import torch.nn.functional as F
 
 __all__ = ["sep_apply", "sep_apply_reference", "sep_apply_mirror",
            "sep_apply_shard", "sep_apply_shard_reference", "choose_tiles",
-           "tile_blocks", "tile_smem_bytes"]
+           "tile_blocks", "tile_smem_bytes", "tensor_core_route"]
 
 LAUNCHES = 0          # kernel launches through sep_apply (never the plain path)
 LAUNCHES_BY_P: dict[int, int] = {}     # the same launches by order p
 LAUNCHES_SHARD = 0    # kernel launches through sep_apply_shard
 LAUNCHES_SHARD_BY_P: dict[int, int] = {}
+# launches of the tensor-core route by order, through either entry: in a
+# float64 order-8 run LAUNCHES_BY_P[8] + LAUNCHES_SHARD_BY_P[8]
+LAUNCHES_TC_BY_P: dict[int, int] = {}
 
 # The kernel's limits (csrc/sep_apply.cu: kMaxP, max_threads<T>()); its
 # entry refuses tiles past them, and shared-memory bytes other than those of
@@ -54,9 +63,14 @@ LAUNCHES_SHARD_BY_P: dict[int, int] = {}
 # the launch.
 MAX_P = 10            # the general instantiation's reach
 MAX_THREADS = {4: 288, 8: 160}   # Tx * Ty by itemsize (__launch_bounds__)
-# p = 8's fixed instantiation (bands and ring of 17 taps in registers, two
-# blocks per SM): Tx and the threads of a block, in either dtype
+# p = 8's fixed instantiation in float32 (bands and ring of 17 taps in
+# registers, two blocks per SM): Tx and the threads of a block
 P8_TX, P8_THREADS = 8, 160
+# the tensor-core route (p = 8 in float64; csrc/sep_apply.cu, namespace tc):
+# its fixed tile of 16 x-columns by 8 y-rows, the u tile's row stride (4
+# modulo 16 doubles: the rows a DMMA fragment reads fall in distinct banks)
+# and the SMs that hold one of its blocks each (132 on an H100)
+TC_TX, TC_TY, TC_ROW_STRIDE, TC_SMS = 16, 8, 36, 132
 TARGET_BLOCKS = 264   # two blocks per SM of an H100 (132 SMs)
 SMEM_LIMIT = 232_448  # shared memory a block may use on Hopper (227 KB)
 
@@ -150,6 +164,12 @@ def sep_apply_shard_reference(x: torch.Tensor, bands_xy, zbands,
     return y, yhalo
 
 
+def tensor_core_route(p: int, itemsize: int) -> bool:
+    """Whether the kernel runs order ``p`` at ``itemsize`` bytes a value on
+    the FP64 tensor cores (DMMA): p = 8 in float64."""
+    return p == 8 and itemsize == 8
+
+
 @functools.lru_cache(maxsize=64)
 def choose_tiles(dims, p: int, itemsize: int,
                  nbatch: int = 1) -> tuple[int, int, int, int]:
@@ -162,8 +182,23 @@ def choose_tiles(dims, p: int, itemsize: int,
     ``nbatch`` stacked lattices in shard mode) has at least
     ``TARGET_BLOCKS`` blocks, chunks as even as Dz allows; S the u tile's
     row stride, at least Tx + 2p and congruent to Tx modulo the row width
-    of a bank line, so the rows a warp reads fall in distinct banks."""
+    of a bank line, so the rows a warp reads fall in distinct banks.
+
+    The tensor-core route takes its fixed ``TC_TX x TC_TY`` tile and
+    ``TC_ROW_STRIDE``, and the z-chunk (a multiple of 8, its batch) that
+    makes the fewest batches in a row of waves of ``TC_SMS`` blocks (one
+    block an SM; a chunk of Tz planes runs Tz / 8 + 2 batches)."""
     Dx, Dy, Dz = dims
+    if tensor_core_route(p, itemsize):
+        nxy = -(-Dx // TC_TX) * -(-Dy // TC_TY) * nbatch
+        best = None
+        for chunks in range(1, Dz + 1):
+            tz = 8 * -(-Dz // (8 * chunks))
+            n = -(-Dz // tz)
+            cost = -(-nxy * n // TC_SMS) * (tz // 8 + 2)
+            if best is None or cost < best[0]:
+                best = (cost, tz)
+        return TC_TX, TC_TY, best[1], TC_ROW_STRIDE
     if p == 8:
         tx = min(P8_TX, Dx)
         rows = P8_THREADS // tx
@@ -183,9 +218,15 @@ def choose_tiles(dims, p: int, itemsize: int,
 def tile_smem_bytes(p: int, tiles, itemsize: int) -> int:
     """Dynamic shared memory of one block: three u planes in flight, t1,
     t2, three planes' z bands, the row offsets and the load offsets (the
-    kernel's ``TileSmem``; the entry takes these bytes and checks them)."""
+    kernel's ``TileSmem``; the entry takes these bytes and checks them).
+    The tensor-core route (``TcSmem``): two u planes a warp of 8, the
+    window's a and b over 24 planes (rows of 18 values, planes of 148),
+    the row and load offsets."""
     tx, ty, _, s = tiles
     h, w = ty + 2 * p, tx + 2 * p
+    if tensor_core_route(p, itemsize):
+        return itemsize * (2 * 8 * h * s + 2 * 24 * (8 * 18 + 4)) + 4 * (
+            h + h * w)
     return (itemsize * (3 * h * s + 2 * h * tx + 3 * 2 * (2 * p + 1))
             + 4 * (h + h * w))
 
@@ -213,6 +254,15 @@ def sep_apply_mirror(x: torch.Tensor, bands, periodic, ess_top: bool = False,
     past the top, from which each output plane is emitted. Sums run
     s = -p..p in order.
 
+    On the tensor-core route (:func:`tensor_core_route`) a block's x, y and
+    z contractions are products with the kernel's dense banded tiles (the x
+    bands over the tile's 16 + 2p columns, the y bands over its 8 + 2p
+    rows, zero off the band and past the lattice), and each batch of 8
+    output planes reads a window of the 24 planes around it, zero outside
+    the lattice and past the last plane the chunk's outputs read; sums run
+    over the tiles' full extent in the plain version's order (the kernel's
+    DMMA sums differ in the last bits).
+
     ``shard = (zt, own0, p0 [Dy, Dx])``: one window of the shard mode (its
     own z bands in ``bands``), with the Dirichlet plane ``zt`` (-1: none)
     in place of ``ess_top``'s top plane and, when ``own0`` is false, plane 0
@@ -230,7 +280,12 @@ def sep_apply_mirror(x: torch.Tensor, bands, periodic, ess_top: bool = False,
                     else (Dz - 1 if ess_top else -1, True, None))
     y = torch.empty_like(x)
     zero = x.new_zeros(())
-    for x0, x1, y0, y1, z0, z1 in tile_blocks((Dx, Dy, Dz), tiles):
+    if tensor_core_route(p, x.element_size()):
+        _mirror_tc(x, bands, periodic[0], tiles, (zt, own0, p0), y)
+        blocks = []
+    else:
+        blocks = tile_blocks((Dx, Dy, Dz), tiles)
+    for x0, x1, y0, y1, z0, z1 in blocks:
         gx = torch.arange(x0 - p, x0 + tx + p)
         if periodic[0]:
             gx, xin = gx % Dx, torch.ones_like(gx, dtype=torch.bool)
@@ -275,6 +330,70 @@ def sep_apply_mirror(x: torch.Tensor, bands, periodic, ess_top: bool = False,
         yhalo = y[0].reshape(-1).clone()
         y[0] = 0.0
     return y, yhalo
+
+
+def _band_tile(band, lo: int, n_out: int, n_in: int) -> torch.Tensor:
+    """The dense banded tile ``T[o, i] = band[i - o, lo + o]`` (``[n_out,
+    n_in]``), zero off the band and where ``lo + o`` lies past the axis."""
+    D = band.shape[1]
+    o = torch.arange(n_out)[:, None]
+    k = torch.arange(n_in)[None, :] - o
+    ok = (k >= 0) & (k < band.shape[0]) & (lo + o < D)
+    return torch.where(ok, band[k.clamp(0, band.shape[0] - 1),
+                                (lo + o).clamp(max=D - 1)],
+                       band.new_zeros(()))
+
+
+def _mirror_tc(x, bands, periodic_x: bool, tiles, shard, y) -> None:
+    """:func:`sep_apply_mirror`'s blocks on the tensor-core route, into
+    ``y``."""
+    Kx, Mx, Ky, My, Kz, Mz = bands
+    Dz, Dy, Dx = x.shape
+    p = (Kx.shape[0] - 1) // 2
+    tx, ty, tz, _ = tiles
+    h, w = ty + 2 * p, tx + 2 * p
+    zt, own0, p0 = shard
+    zero = x.new_zeros(())
+    for x0, x1, y0, y1, z0, z1 in tile_blocks((Dx, Dy, Dz), tiles):
+        akx, amx = _band_tile(Kx, x0, tx, w), _band_tile(Mx, x0, tx, w)
+        bmy, bky = _band_tile(My, y0, ty, h), _band_tile(Ky, y0, ty, h)
+        gx = torch.arange(x0 - p, x0 + tx + p)
+        if periodic_x:
+            gx, xin = gx % Dx, torch.ones_like(gx, dtype=torch.bool)
+        else:
+            xin = (gx >= 0) & (gx < Dx)
+        gy = torch.arange(y0 - p, y0 + ty + p)
+        inside = ((gy >= 0) & (gy < Dy))[:, None] & xin[None, :]
+        gxc, gyc = gx.clamp(0, Dx - 1), gy.clamp(0, Dy - 1)
+        zhi = z1 - 1 + p                 # the last input plane read
+
+        @functools.lru_cache(maxsize=None)
+        def plane_ab(z):
+            """(a, b) [ty, tx] of input plane z, zero where no output of
+            the chunk reads it."""
+            if not 0 <= z < Dz or z > zhi:
+                return x.new_zeros(ty, tx), x.new_zeros(ty, tx)
+            src = p0 if z == 0 and not own0 else x[z]
+            u = torch.where(inside, src[gyc][:, gxc], zero)
+            if z == zt:
+                u = torch.zeros_like(u)
+            t1 = sum(akx[:, j, None] * u[None, :, j] for j in range(w))
+            t2 = sum(amx[:, j, None] * u[None, :, j] for j in range(w))
+            a = (sum(t1[:, r, None] * bmy[None, :, r] for r in range(h))
+                 + sum(t2[:, r, None] * bky[None, :, r] for r in range(h)))
+            b = sum(t2[:, r, None] * bmy[None, :, r] for r in range(h))
+            return a.T, b.T
+
+        for zb in range(z0, z1, 8):
+            win = [plane_ab(z) for z in range(zb - 8, zb + 16)]
+            zm, zk = _band_tile(Mz, zb, 8, 24), _band_tile(Kz, zb, 8, 24)
+            for n in range(min(8, z1 - zb)):
+                zo = zb + n
+                out = (sum(zm[n, k] * win[k][0] for k in range(24))
+                       + sum(zk[n, k] * win[k][1] for k in range(24)))
+                if zo == zt:
+                    out = x[zo, y0:y0 + ty, x0:x0 + tx]
+                y[zo, y0:y1, x0:x1] = out[:y1 - y0, :x1 - x0]
 
 
 def _check(x: torch.Tensor, bands, periodic) -> int:
@@ -340,7 +459,13 @@ def sep_apply(x: torch.Tensor, bands, periodic,
         raise RuntimeError(f"sep_apply kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     LAUNCHES_BY_P[p] = LAUNCHES_BY_P.get(p, 0) + 1
+    _count_tc(p, x.element_size())
     return y
+
+
+def _count_tc(p: int, itemsize: int) -> None:
+    if tensor_core_route(p, itemsize):
+        LAUNCHES_TC_BY_P[p] = LAUNCHES_TC_BY_P.get(p, 0) + 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -430,4 +555,5 @@ def sep_apply_shard(x: torch.Tensor, bands_xy, zbands, periodic_x: bool,
                            f"error {rc}")
     LAUNCHES_SHARD += 1
     LAUNCHES_SHARD_BY_P[p] = LAUNCHES_SHARD_BY_P.get(p, 0) + 1
+    _count_tc(p, x.element_size())
     return y, yhalo

@@ -32,7 +32,9 @@ float32), alone and in a V-cycle of the p = 4 hierarchy; one launch a
 coarse solve and no B3b launch at p = 1; a level past one cluster's shared
 memory takes the eager route. B1 at p = 8 on the benchmark's order-8 tank
 (``-k order8``, 1024 x 65 x 257): 1e-13 of max|y| in float64, 1e-6 in
-float32, the same bits twice.
+float32, the same bits twice. B1's tensor-core route (``-k tensor_cores``,
+p = 8 in float64 on DMMA) on edge lattices, the stationary tank and in
+shard mode: 1e-13 of max|y|, the same bits twice, its launches counted.
 """
 
 import functools
@@ -223,7 +225,8 @@ def test_kernel_matches_plain_version_at_the_general_orders(cuda, tank, p,
 def test_kernel_at_p8_on_the_order8_tank(cuda, dtype, tol):
     """B1 at p = 8 on the top lattice of the benchmark's order-8 tank
     (1024 x 65 x 257, x periodic, ``ess_top``): against the plain version
-    and bitwise equal on a second call, one launch counted at p = 8."""
+    and bitwise equal on a second call, one launch counted at p = 8 (on
+    the tensor-core route in float64 only)."""
     sp = LatticeSpace.from_config(lpfem_torch.preset(
         "scaling_base", order=8, ref_levels=2))
     assert sp.dof_dims == (1024, 65, 257)
@@ -232,13 +235,79 @@ def test_kernel_at_p8_on_the_order8_tank(cuda, dtype, tol):
     x = torch.randn(op.dof_dims[::-1], generator=gen, device=cuda,
                     dtype=torch.float64).to(dtype)
     before = ksep.LAUNCHES_BY_P.get(8, 0)
+    tc = ksep.LAUNCHES_TC_BY_P.get(8, 0)
     y = ksep.sep_apply(x, op.bands, op.periodic, True)
     assert ksep.LAUNCHES_BY_P[8] == before + 1
+    assert ksep.LAUNCHES_TC_BY_P.get(8, 0) == tc + (dtype == torch.float64)
     assert torch.equal(y, ksep.sep_apply(x, op.bands, op.periodic, True))
     y_ref = ksep.sep_apply_reference(x, op.bands, op.periodic, True)
     torch.cuda.synchronize()
     err = float((y - y_ref).abs().max() / y_ref.abs().max())
     assert err < tol, err
+
+
+# B1's tensor-core route (p = 8 in float64): lattices whose y axis the
+# route's 8-row tiles split, x periodic (Dx = 18: the tile's halo wraps)
+# and finite (Dx = 13: past the ends, within one 16-column tile), each with
+# and without ess_top; the stationary p = 8 tank (Dy = 9 < 16); the shard
+# mode over 3 windows (a padded top slab) with each kind of scal row
+TC_CASES = ([("lattice", dims, per, ess)
+             for dims, per in (((18, 41, 5), True), ((13, 45, 4), False))
+             for ess in (False, True)]
+            + [("stationary", (64, 9, 17), True, ess) for ess in (False, True)]
+            + [("shard", None, True, kind)
+               for kind in ("constrained", "unconstrained", "own0 flipped")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dims,periodic,arg", TC_CASES)
+def test_kernel_at_p8_on_the_tensor_cores(cuda, case, dims, periodic, arg):
+    """``sep_tile_kernel<double, 8>`` (DMMA) against the plain version
+    within 1e-13 of max|y|, the same bits on a second call, and each call
+    one launch counted in ``LAUNCHES_TC_BY_P[8]``."""
+    tc = ksep.LAUNCHES_TC_BY_P.get(8, 0)
+    if case == "shard":
+        lv, lv_cpu = _shard_level("sep", 3, 8, torch.float64, cuda)
+        rng = np.random.default_rng(83)
+        x = torch.tensor(rng.standard_normal((3, lv.N_max + 1)))
+        x[:, lv.N_max] = 0.0
+        p0 = torch.tensor(rng.standard_normal((3, lv.pt.win["plane"])))
+        scal = lv.scal_o if arg == "unconstrained" else lv.scal_c.clone()
+        if arg == "own0 flipped":
+            scal[:, 1] = 1 - scal[:, 1]
+
+        def run(l, s, xx, pp):
+            return ksep.sep_apply_shard(xx, l.bands_xy, l.zbands, True, s,
+                                        pp, l.dims)
+        y, yh = run(lv, scal, x.to(cuda), p0.to(cuda))
+        y2, yh2 = run(lv, scal, x.to(cuda), p0.to(cuda))
+        assert torch.equal(y, y2) and torch.equal(yh, yh2)
+        y_r, yh_r = run(lv_cpu, scal.cpu(), x, p0)
+        scale = float(y_r.abs().max())
+        assert float((y.cpu() - y_r).abs().max()) <= 1e-13 * scale
+        assert float((yh.cpu() - yh_r).abs().max()) <= 1e-13 * scale
+        assert not torch.any(y[:, lv.N_max])
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(dims[1])
+        if case == "stationary":
+            op = SeparableLattice(_conv_tank(8), torch.float64, cuda)
+            assert op.dof_dims == dims
+            bands, per = op.bands, op.periodic
+        else:
+            bands = tuple(torch.randn(17, D, generator=gen, device=cuda,
+                                      dtype=torch.float64)
+                          for D in (dims[0], dims[0], dims[1], dims[1],
+                                    dims[2], dims[2]))
+            per = (periodic, False, False)
+        x = torch.randn(dims[::-1], generator=gen, device=cuda,
+                        dtype=torch.float64)
+        y = ksep.sep_apply(x, bands, per, arg)
+        assert torch.equal(y, ksep.sep_apply(x, bands, per, arg))
+        y_ref = ksep.sep_apply_reference(x, bands, per, arg)
+        torch.cuda.synchronize()
+        err = float((y - y_ref).abs().max() / y_ref.abs().max())
+        assert err < 1e-13, err
+    assert ksep.LAUNCHES_TC_BY_P[8] == tc + 2
 
 
 @pytest.mark.cuda

@@ -150,10 +150,12 @@ def test_sep_shard_matches_lpfem(order, ndev, kind):
 @pytest.mark.parametrize("kind", SCAL)
 @pytest.mark.parametrize("ndev,order,tiles", [(3, 2, (5, 3, 4)),
                                               (4, 3, (5, 4, 5)),
-                                              (3, 4, (6, 2, 7))])
+                                              (3, 4, (6, 2, 7)),
+                                              (3, 8, None)])
 def test_sep_shard_mirror_matches_plain(ndev, order, tiles, kind):
     """The kernel's tiling in shard mode, window by window, on windows from
-    the solver's tables and tiles that divide none of Dx, Dy, Dz."""
+    the solver's tables and tiles that divide none of Dx, Dy, Dz; at order
+    8 (float64: the tensor-core route) the tiles of ``choose_tiles``."""
     prob = lpfem_torch.Problem(lpfem_torch.preset(
         "scaling_base", nx=4, ny=2, nz=8, order=order), device="cpu",
         build_precond=False)
@@ -161,7 +163,11 @@ def test_sep_shard_mirror_matches_plain(ndev, order, tiles, kind):
     lv = ShardedLevel(SeparableLattice(prob.space, torch.float64, "cpu"), pt,
                       prob.surf.surf_to_vol, ShardComm(ndev), "cpu")
     Dx, Dy, Dz = lv.dims
-    assert Dx % tiles[0] and Dy % tiles[1] and Dz % tiles[2]
+    if tiles is None:                  # the tensor-core route's own tile
+        tiles = ksep.choose_tiles(lv.dims, order, 8, ndev)
+    else:
+        assert Dx % tiles[0] and Dy % tiles[1] and Dz % tiles[2]
+        tiles = (*tiles, tiles[0] + 2 * order)
     scal = _scal(lv, kind)
     x, p0 = _inputs(lv, 7 * order + ndev, np.float64)
     x, p0 = torch.tensor(x), torch.tensor(p0)
@@ -172,8 +178,7 @@ def test_sep_shard_mirror_matches_plain(ndev, order, tiles, kind):
         bands = (*lv.bands_xy, lv.zbands[0][d], lv.zbands[1][d])
         ym, yhm = ksep.sep_apply_mirror(
             x[d, :n].reshape(Dz, Dy, Dx), bands, (True, False, False),
-            tiles=(*tiles, tiles[0] + 2 * order),
-            shard=(zt, bool(own0), p0[d].reshape(Dy, Dx)))
+            tiles=tiles, shard=(zt, bool(own0), p0[d].reshape(Dy, Dx)))
         assert _rel(ym.reshape(-1).numpy(), y[d, :n].numpy()) <= 1e-15
         if own0:
             assert not torch.any(yhm)

@@ -129,13 +129,20 @@ def test_sep_mirror_wraps_a_short_periodic_axis(p, ess_top):
 def test_tile_chooser_covers_each_dof_once(dims, p, itemsize):
     """The blocks of choose_tiles write every output dof exactly once, a
     block has at most MAX_THREADS threads and fits the shared memory of a
-    Hopper block; on the ss.cpp lattices the grid has >= 264 blocks."""
+    Hopper block; on the ss.cpp lattices the grid has >= 264 blocks (p = 8
+    in float64: the tensor-core route's fixed tile)."""
     tiles = ksep.choose_tiles(dims, p, itemsize)
     tx, ty, tz, s = tiles
     assert tx * ty <= ksep.MAX_THREADS[itemsize]
-    if p == 8:
-        assert tx == min(ksep.P8_TX, dims[0]) and tx * ty <= ksep.P8_THREADS
-    assert s >= tx + 2 * p and (s - tx) % (32 * 4 // itemsize) == 0
+    if ksep.tensor_core_route(p, itemsize):
+        # the DMMA route's fixed tile; its fragments read rows s apart
+        assert (tx, ty) == (ksep.TC_TX, ksep.TC_TY) and tz % 8 == 0
+        assert s >= tx + 2 * p and s % 16 == 4
+    else:
+        if p == 8:
+            assert tx == min(ksep.P8_TX, dims[0])
+            assert tx * ty <= ksep.P8_THREADS
+        assert s >= tx + 2 * p and (s - tx) % (32 * 4 // itemsize) == 0
     Dx, Dy, Dz = dims
     hits = torch.zeros(Dz, Dy, Dx, dtype=torch.int32)
     blocks = ksep.tile_blocks(dims, tiles)
