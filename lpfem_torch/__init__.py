@@ -4,7 +4,7 @@ A port of ``lpfem`` (the JAX package beside it, which stays the reference)
 to PyTorch with hand-written CUDA kernels. Module names mirror ``lpfem`` so a
 reader can find each counterpart:
 
-    configs    the reference's Config / presets (verbatim)
+    configs    the reference's Config / presets, minus a TPU-only field
     elements   GLL Lagrange basis / quadrature tables (NumPy)
     analytic   Airy wave, dispersion, McCamy-Fuchs series
     mesh       hex mesh record, refinement, Cartesian tank generators, MFEM
@@ -68,7 +68,7 @@ import torch
 # Full-f32 products everywhere: the multigrid transfers and the dense coarse
 # inverse are f32 matmuls, and TF32 (about three decimal digits) would cap the
 # inner correction exactly like the TPU's bf16 matmul default does for the
-# reference (``Config.mixed_inner_precision``).
+# reference (``mixed_inner_precision``, a TPU-only field of lpfem's Config).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")

@@ -7,8 +7,10 @@ variants ``Solvers/PF_linear_par_partial.cpp:298-341``). Here each program is
 a named preset of one dataclass; ``lpfem_torch.problem.Problem`` assembles a
 run from it.
 
-Field names, defaults and presets are a verbatim copy of ``lpfem.configs``
-(the JAX reference) so that one ``Config`` drives either package; the
+Field names, defaults and presets are those of ``lpfem.configs`` (the JAX
+reference), so that a configuration drives either package, minus the
+TPU-only ``mixed_inner_precision`` (the MXU's product precision; the port
+keeps full-float32 products always, ``lpfem_torch/__init__.py``). The
 comments that mention the TPU describe the reference's behaviour.
 """
 
@@ -44,14 +46,6 @@ class Config:
                                          #  the fully assembled matrix, the
                                          #  PF_linear_par configuration)
     dtype: str = "float64"
-    mixed_inner_precision: str = "highest"
-                                         # MXU product precision of the f32
-                                         # inner operator when dtype="mixed":
-                                         # TPU's default f32 matmul rounds
-                                         # inputs to bf16, capping the inner
-                                         # correction accuracy (the p>=8
-                                         # refinement stall); highest = exact
-                                         # f32 products. default|high|highest
     # ---- wave ----
     H: float = 0.005
     g: float = 9.81

@@ -15,6 +15,9 @@ solve (inverted in float64 on the host) up to ``coarse_dense_limit`` dofs,
 else Chebyshev-16. The essential set is the free surface
 (``space.top_plane_dofs()``) on every level.
 
+The smoother, the element transfer and the V-cycle (:class:`VCycle`) serve
+the sharded p-multigrid too (``shard.ShardedPMG``: its own hierarchy).
+
 The route of the coarse solve, ``PMultigrid.coarse_route``, follows from
 what the bottom level is: ``"dense"`` up to ``coarse_dense_limit`` dofs;
 above it ``"fused"`` where ``kernels.coarse_cheb.CoarseChebyshev.for_level``
@@ -38,6 +41,8 @@ so parity tests inject the reference's per-level lambda_max (``lmax=``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -46,7 +51,7 @@ from .kernels import coarse_cheb
 from .operators import laplace_operator
 from .profiling import detail, span
 
-__all__ = ["ChebyshevSmoother", "PMultigrid", "estimate_lmax"]
+__all__ = ["ChebyshevSmoother", "PMultigrid", "VCycle", "estimate_lmax"]
 
 
 def estimate_lmax(apply_fn, inv_diag: torch.Tensor, iters: int = 20,
@@ -102,6 +107,15 @@ class ChebyshevSmoother:
         return z
 
 
+def p_orders(p: int) -> list[int]:
+    """The p-levels' orders: p, p/2, ..., 1."""
+    orders = []
+    while p > 1:
+        orders.append(p)
+        p = max(1, p // 2)
+    return orders + [1]
+
+
 def _axis_interp(n: int, pc: int, pf: int, periodic: bool) -> np.ndarray:
     """[Df, Dc] interpolation from the order-``pc`` GLL grid to the
     order-``pf`` grid over ``n`` elements (``lpfem.multigrid._axis_interp``)."""
@@ -114,6 +128,16 @@ def _axis_interp(n: int, pc: int, pf: int, periodic: bool) -> np.ndarray:
         cols = (e * pc + np.arange(pc + 1)) % Dc
         P[np.ix_(rows, cols)] = I1
     return P
+
+
+def interp_3d(pc: int, pf: int, dtype, device) -> torch.Tensor:
+    """``I3 [(pf+1)^3, (pc+1)^3]``: the element interpolation from order
+    ``pc`` to order ``pf`` (``lpfem/multigrid.py:148-182``,
+    ``lpfem/shard.py:904-908``)."""
+    I1, _ = lagrange_eval(basis_1d(pc).nodes, basis_1d(pf).nodes)
+    I3 = np.einsum("cz,by,ax->cbazyx", I1, I1, I1).reshape(
+        (pf + 1) ** 3, (pc + 1) ** 3)
+    return torch.tensor(I3).to(device=device, dtype=dtype)
 
 
 class _Level:
@@ -131,68 +155,116 @@ class _Level:
         diag[torch.as_tensor(top, device=dev)] = 1.0
         self.inv_diag = 1.0 / diag
         self.apply_c = op.constrained_apply_top
+        # an ElementLaplace's E-vector pair: a side of an element transfer
+        self.gather_E = getattr(op, "gather", None)
+        self.assemble_E = getattr(op, "scatter", None)
 
 
 class _Transfer:
     """Embedded interpolation P = Pz (x) Py (x) Px between two lattice
     levels, as three dense per-axis contractions; restriction is P^T."""
 
-    def __init__(self, fine, coarse, pc: int,
+    def __init__(self, fine: _Level, coarse: _Level, pc: int,
                  pf: int, elem_dims, dtype, device):
+        fs = fine.op.space
         self.P1z, self.P1y, self.P1x = (
             torch.tensor(_axis_interp(elem_dims[a], pc, pf,
-                                      fine.periodic[a])).to(device=device,
-                                                            dtype=dtype)
+                                      fs.periodic[a])).to(device=device,
+                                                          dtype=dtype)
             for a in (2, 1, 0))
-        self.fine_shape = tuple(reversed(fine.dof_dims))
-        self.coarse_shape = tuple(reversed(coarse.dof_dims))
+        self.fine_shape = tuple(reversed(fs.dof_dims))
+        self.coarse_shape = tuple(reversed(coarse.op.space.dof_dims))
+        self.fine_free, self.coarse_free = fine.free, coarse.free
 
-    def prolong(self, fine: _Level, coarse: _Level,
-                xc: torch.Tensor) -> torch.Tensor:
+    def prolong(self, xc: torch.Tensor) -> torch.Tensor:
         v = xc.reshape(self.coarse_shape)
         v = torch.einsum("ZC,Cyx->Zyx", self.P1z, v)
         v = torch.einsum("YC,zCx->zYx", self.P1y, v)
         v = torch.einsum("XC,zyC->zyX", self.P1x, v)
-        return v.reshape(-1) * fine.free
+        return v.reshape(-1) * self.fine_free
 
-    def restrict(self, fine: _Level, coarse: _Level,
-                 rf: torch.Tensor) -> torch.Tensor:
+    def restrict(self, rf: torch.Tensor) -> torch.Tensor:
         v = rf.reshape(self.fine_shape)
         v = torch.einsum("ZC,Zyx->Cyx", self.P1z, v)
         v = torch.einsum("YC,zYx->zCx", self.P1y, v)
         v = torch.einsum("XC,zyX->zyC", self.P1x, v)
-        return v.reshape(-1) * coarse.free
+        return v.reshape(-1) * self.coarse_free
 
 
 class _ElementTransfer:
-    """The same interpolation between two orders on one mesh without a
-    lattice, element by element (``lpfem/multigrid.py:148-182``): gather the
-    coarse E-vector, interpolate with ``I3 [Lf, Lc]``, fold on the fine
-    level and divide by the node multiplicity (the copies of a shared node
-    are equal); restriction is the exact transpose. Both levels'
-    operators are :class:`~lpfem_torch.operators.ElementLaplace`."""
+    """The same interpolation element by element (``lpfem/multigrid.py:
+    148-182``, ``lpfem/shard.py:814-847``): gather the coarse E-vector,
+    interpolate with ``I3 [Lf, Lc]``, fold on the fine side and multiply by
+    its inverse node multiplicity ``inv_mult`` (the copies of a shared node
+    are equal); restriction is the exact transpose. A side is a level with
+    an E-vector ``gather_E`` / ``assemble_E`` (an ``ElementLaplace``'s
+    :class:`_Level`, a ``ShardedLevel``), on the fine side ``via`` where
+    given (a sharded h-transfer's p=2 exchange on the half mesh)."""
 
-    def __init__(self, fine: _Level, pc: int, pf: int):
-        op = fine.op
-        I1, _ = lagrange_eval(basis_1d(pc).nodes, basis_1d(pf).nodes)
-        I3 = np.einsum("cz,by,ax->cbazyx", I1, I1, I1).reshape(
-            (pf + 1) ** 3, (pc + 1) ** 3)
-        self.I3 = torch.tensor(I3).to(device=op.device, dtype=op.dtype)
-        self.inv_mult = torch.tensor(1.0 / op.space.node_mult).to(
-            device=op.device, dtype=op.dtype)
+    def __init__(self, I3: torch.Tensor, fine, coarse,
+                 inv_mult: torch.Tensor, via=None):
+        side = fine if via is None else via
+        self.I3, self.inv_mult, self.via = I3, inv_mult, via
+        self._gather_f, self._fold_f = side.gather_E, side.assemble_E
+        self._gather_c, self._fold_c = coarse.gather_E, coarse.assemble_E
+        self.fine_free, self.coarse_free = fine.free, coarse.free
 
-    def prolong(self, fine: _Level, coarse: _Level,
-                xc: torch.Tensor) -> torch.Tensor:
-        uf = coarse.op.gather(xc) @ self.I3.T
-        return fine.op.scatter(uf) * self.inv_mult * fine.free
+    def prolong(self, xc: torch.Tensor) -> torch.Tensor:
+        uf = self._gather_c(xc) @ self.I3.T
+        return self._fold_f(uf) * self.inv_mult * self.fine_free
 
-    def restrict(self, fine: _Level, coarse: _Level,
-                 rf: torch.Tensor) -> torch.Tensor:
-        uc = fine.op.gather(rf * self.inv_mult) @ self.I3
-        return coarse.op.scatter(uc) * coarse.free
+    def restrict(self, rf: torch.Tensor) -> torch.Tensor:
+        uc = self._gather_f(rf * self.inv_mult) @ self.I3
+        return self._fold_c(uc) * self.coarse_free
 
 
-class PMultigrid:
+class VCycle:
+    """The V-cycle of :class:`PMultigrid` and ``shard.ShardedPMG``, over
+    the hierarchy their constructors build: ``levels`` (each with
+    ``apply_c``), ``smoothers`` (the bottom one unused), ``transfers``
+    (``transfers[i]`` between levels ``i`` and ``i + 1``) and
+    ``coarse_solve``. Spans and details: the module docstring."""
+
+    @functools.cached_property
+    def _stages(self) -> list:
+        """The details of each level's stages, named by the level's index."""
+        return [tuple(f"multigrid.L{i}.{stage}" for stage in
+                      ("presmooth", "residual", "restrict", "prolong",
+                       "postsmooth"))
+                for i in range(len(self.levels) - 1)]
+
+    def _vcycle(self, li: int, r: torch.Tensor) -> torch.Tensor:
+        if li == len(self.levels) - 1:
+            with span("multigrid.coarse"):
+                return self.coarse_solve(r)
+        sm = self.smoothers[li]
+        lv = self.levels[li]
+        tr = self.transfers[li]
+        pre, res, restrict, prolong, post = self._stages[li]
+        with detail(pre):
+            z = sm(r)                               # pre-smooth from zero
+        with detail(res):
+            rf = r - lv.apply_c(z)
+        with detail(restrict):
+            rc = tr.restrict(rf)
+        if li == 0:
+            # the levels below the top one: the top level's own work is
+            # then the self time of multigrid.vcycle
+            with span("multigrid.lower"):
+                zc = self._vcycle(1, rc)
+        else:
+            zc = self._vcycle(li + 1, rc)
+        with detail(prolong):
+            z = z + tr.prolong(zc)
+        with detail(post):
+            return sm(r, z0=z)                      # post-smooth
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        with span("multigrid.vcycle"):
+            return self._vcycle(0, r)
+
+
+class PMultigrid(VCycle):
     """V-cycle p/h-multigrid preconditioner for the Laplace operator with
     the top-plane essential constraint. ``pmg(r)`` assumes ``r`` vanishes on
     the top plane (true inside CG on the constrained system).
@@ -214,13 +286,7 @@ class PMultigrid:
                  lmax: list[float] | None = None):
         space = fine_op.space
         dtype, device = fine_op.dtype, fine_op.device
-        orders = []
-        q = space.p
-        while q > 1:
-            orders.append(q)
-            q = max(1, q // 2)
-        orders.append(1)
-        self.orders = orders
+        self.orders = orders = p_orders(space.p)
 
         mode = fine_op.mode
         ops = [fine_op] + [laplace_operator(space.with_order(pl), dtype,
@@ -229,13 +295,16 @@ class PMultigrid:
         self.levels = [_Level(op) for op in ops]
         self.transfers = []
         for i in range(len(orders) - 1):
+            fine, coarse = self.levels[i], self.levels[i + 1]
             fs, cs = ops[i].space, ops[i + 1].space
             if fs.dof_dims is not None and cs.dof_dims is not None:
-                tr = _Transfer(fs, cs, orders[i + 1], orders[i],
+                tr = _Transfer(fine, coarse, orders[i + 1], orders[i],
                                fs.elem_dims, dtype, device)
             else:
-                tr = _ElementTransfer(self.levels[i], orders[i + 1],
-                                      orders[i])
+                tr = _ElementTransfer(
+                    interp_3d(orders[i + 1], orders[i], dtype, device),
+                    fine, coarse, torch.tensor(1.0 / fs.node_mult).to(
+                        device=device, dtype=dtype))
             self.transfers.append(tr)
 
         # h-coarsening below p=1: p=1 on the fine grid shares its dof lattice
@@ -250,8 +319,9 @@ class PMultigrid:
                 break
             self.levels.append(_Level(laplace_operator(sp_c, dtype, device,
                                                        mode=mode)))
-            self.transfers.append(_Transfer(bot, sp_c, 1, 2, sp_c.elem_dims,
-                                            dtype, device))
+            self.transfers.append(_Transfer(self.levels[-2], self.levels[-1],
+                                            1, 2, sp_c.elem_dims, dtype,
+                                            device))
             self.orders = self.orders + [1]
 
         if lmax is None:
@@ -264,12 +334,6 @@ class PMultigrid:
         self.smoothers = [ChebyshevSmoother(lv.apply_c, lv.inv_diag, lm,
                                             degree=smooth_degree)
                           for lv, lm in zip(self.levels, self.lmax)]
-
-        # the details of each level's stages, named by the level's index
-        self._spans = [tuple(f"multigrid.L{i}.{stage}" for stage in
-                             ("presmooth", "residual", "restrict", "prolong",
-                              "postsmooth"))
-                       for i in range(len(self.levels) - 1)]
 
         cl = self.levels[-1]
         if cl.op.n_dofs <= coarse_dense_limit:
@@ -290,34 +354,3 @@ class PMultigrid:
                                                           cheb)
             self.coarse_solve = cheb if fused is None else fused
             self.coarse_route = "chebyshev" if fused is None else "fused"
-
-    def _vcycle(self, li: int, r: torch.Tensor) -> torch.Tensor:
-        if li == len(self.levels) - 1:
-            with span("multigrid.coarse"):
-                return self.coarse_solve(r)
-        sm = self.smoothers[li]
-        lv = self.levels[li]
-        tr = self.transfers[li]
-        pre, res, restrict, prolong, post = self._spans[li]
-        with detail(pre):
-            z = sm(r)                               # pre-smooth from zero
-        coarse = self.levels[li + 1]
-        with detail(res):
-            rf = r - lv.apply_c(z)
-        with detail(restrict):
-            rc = tr.restrict(lv, coarse, rf)
-        if li == 0:
-            # the levels below the top one: the top level's own work is
-            # then the self time of multigrid.vcycle
-            with span("multigrid.lower"):
-                zc = self._vcycle(1, rc)
-        else:
-            zc = self._vcycle(li + 1, rc)
-        with detail(prolong):
-            z = z + tr.prolong(lv, coarse, zc)
-        with detail(post):
-            return sm(r, z0=z)                      # post-smooth
-
-    def __call__(self, r: torch.Tensor) -> torch.Tensor:
-        with span("multigrid.vcycle"):
-            return self._vcycle(0, r)

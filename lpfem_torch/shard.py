@@ -60,17 +60,19 @@ import torch
 import torch.nn.functional as F
 
 from . import resolve_device
-from .elements import basis_1d, lagrange_eval
+from .elements import basis_1d
 from .geometry import affine_c6, surface_elements, top_trace_geometry
 from .kernels.lattice_apply import lattice_affine_apply_shard
 from .kernels.pa_apply import pa_apply_affine, pa_apply_element
 from .kernels.sep_apply import check_scal, sep_apply_shard
-from .multigrid import estimate_lmax
+from .multigrid import (ChebyshevSmoother, VCycle, _ElementTransfer,
+                        estimate_lmax, interp_3d, p_orders)
 from .operators import (AffineLatticeLaplace, ElementLaplace,
                         SeparableLattice, _fold_table, _reference_matrices,
                         assemble_csr, element_source, laplace_operator,
                         separable_spacings)
-from .solvers import pcg, pcg_ir
+from .profiling import span
+from .space import _top_plane_dofs
 from .surface import SolveCarry, SolveStats
 from .timestep import rk4_run
 
@@ -112,11 +114,6 @@ def _node_mult(space) -> np.ndarray:
     """[n_dofs] float64: the elements sharing each dof."""
     return np.bincount(np.asarray(space.elem_dofs).ravel(),
                        minlength=space.n_dofs).astype(np.float64)
-
-
-def _top_plane(space) -> np.ndarray:
-    Dx, Dy, Dz = space.dof_dims
-    return Dx * Dy * (Dz - 1) + np.arange(Dx * Dy, dtype=np.int64)
 
 
 class ShardComm:
@@ -957,7 +954,7 @@ class ShardedLevel(ShardedExchange):
         self.invd = put(1.0 / dstack)
         self.invm = put(1.0 / mstack)
         self._ess_top = (op.space.dof_dims is not None and np.array_equal(
-            np.sort(ess), _top_plane(op.space)))
+            np.sort(ess), _top_plane_dofs(op.space.dof_dims)))
 
         w = pt.win
         if ell:
@@ -1113,68 +1110,6 @@ class ShardedLevel(ShardedExchange):
         return y * self.free + x * self.ess
 
 
-class _ShardedChebyshev:
-    """Chebyshev-Jacobi smoother over a :class:`ShardedLevel`
-    (``lpfem/shard.py:781-811``)."""
-
-    def __init__(self, level: ShardedLevel, lmax: float, degree: int = 3,
-                 lmin_frac: float = 1.0 / 30.0):
-        self.level = level
-        self.degree = degree
-        lmin = lmin_frac * lmax
-        self.theta = (lmax + lmin) / 2.0
-        self.delta = (lmax - lmin) / 2.0
-
-    def __call__(self, r: torch.Tensor, z0: torch.Tensor | None = None):
-        lv = self.level
-        invD = lv.invd
-        if z0 is None:
-            res = r
-            z = torch.zeros_like(r)
-        else:
-            z = z0
-            res = r - lv.apply_c(z)
-        sigma = self.theta / self.delta
-        rho = 1.0 / sigma
-        d = invD * res / self.theta
-        z = z + d
-        for _ in range(self.degree - 1):
-            rho_new = 1.0 / (2.0 * sigma - rho)
-            d = (rho_new * rho * d
-                 + (2.0 * rho_new / self.delta) * (invD * (r - lv.apply_c(z))))
-            z = z + d
-            rho = rho_new
-        return z
-
-
-class _ShardedTransfer:
-    """Embedded interpolation between consecutive sharded levels
-    (``lpfem/shard.py:814-847``): element-local ``I3 [Lf, Lc]`` on the
-    E-vectors; the fine side is the fine level itself, or for
-    h-coarsening a p=2 exchange on the half mesh with the fine level's dof
-    layout (``via``)."""
-
-    def __init__(self, I3: torch.Tensor, fine: ShardedLevel,
-                 coarse: ShardedLevel, via: ShardedExchange | None = None):
-        self.I3 = I3
-        self.fine = fine
-        self.coarse = coarse
-        self.via = via
-
-    def _via(self) -> ShardedExchange:
-        return self.fine if self.via is None else self.via
-
-    def prolong(self, xc: torch.Tensor) -> torch.Tensor:
-        via = self._via()
-        uf = self.coarse.gather_E(xc) @ self.I3.T
-        return via.assemble_E(uf) * via.invm * self.fine.free
-
-    def restrict(self, rf: torch.Tensor) -> torch.Tensor:
-        via = self._via()
-        uc = via.gather_E(rf * via.invm) @ self.I3
-        return self.coarse.assemble_E(uc) * self.coarse.free
-
-
 def _estimate_lmax_sharded(lv: ShardedLevel, iters: int = 20,
                            safety: float = 1.1) -> float:
     """Power iteration for lambda_max(D^-1 A) through the sharded operator
@@ -1191,22 +1126,15 @@ def _estimate_lmax_sharded(lv: ShardedLevel, iters: int = 20,
     return float(lam) * safety
 
 
-def _interp_3d(pc: int, pf: int) -> np.ndarray:
-    """``[(pf+1)^3, (pc+1)^3]``: the element interpolation from order pc to
-    order pf (``lpfem/shard.py:904-908``)."""
-    I1, _ = lagrange_eval(basis_1d(pc).nodes, basis_1d(pf).nodes)
-    return np.einsum("cz,by,ax->cbazyx", I1, I1, I1).reshape(
-        (pf + 1) ** 3, (pc + 1) ** 3)
-
-
-class ShardedPMG:
-    """The sharded V-cycle (``lpfem/shard.py:875-1060``): p-levels p, p/2,
-    .., 1 over the fine element partition, then h-levels (2x2x2 merges)
-    while the bottom level is a lattice above ``h_coarsen_min_dofs``, on
-    partitions descended from the fine slabs; Chebyshev-Jacobi smoothing,
-    Chebyshev-16 on the coarsest level. Where the coarse z-slabs stop
-    halving the bottom level's, the bottom level is rebuilt in the compact
-    layout and h-coarsening goes on below it.
+class ShardedPMG(VCycle):
+    """The sharded p-multigrid (``lpfem/shard.py:875-1060``): p-levels p,
+    p/2, .., 1 over the fine element partition, then h-levels (2x2x2
+    merges) while the bottom level is a lattice above
+    ``h_coarsen_min_dofs``, on partitions descended from the fine slabs.
+    Where the coarse z-slabs stop halving the bottom level's, the bottom
+    level is rebuilt in the compact layout and h-coarsening goes on below
+    it. Smoothers, transfers and V-cycle are those of ``multigrid``; the
+    coarse solve is the coarsest level's Chebyshev-16 (lpfem's design).
 
     ``lmax``: per-level lambda_max (parity runs inject the reference's);
     else ``lmax_mode="host"`` estimates it on the single-device operators,
@@ -1221,23 +1149,13 @@ class ShardedPMG:
         ndev = pt_fine.ndev
         dtype = prob.op.dtype
         setup_dev = prob.op.device
-        orders = []
-        q = space.p
-        while q > 1:
-            orders.append(q)
-            q = max(1, q // 2)
-        orders.append(1)
-        self.orders = orders
+        self.orders = orders = p_orders(space.p)
 
         def level(op, pt, ess):
             return ShardedLevel(op, pt, ess, comm, device, exchange)
 
-        def I3(pc, pf):
-            return torch.tensor(_interp_3d(pc, pf)).to(device=device,
-                                                       dtype=dtype)
-
         self.levels: list[ShardedLevel] = []
-        self.transfers: list[_ShardedTransfer] = []
+        self.transfers: list[_ElementTransfer] = []
         self.ess_list = []
         for li, pl in enumerate(orders):
             if li == 0:
@@ -1251,9 +1169,9 @@ class ShardedPMG:
             self.levels.append(level(op, pt, ess))
             self.ess_list.append(ess)
             if li > 0:
-                self.transfers.append(_ShardedTransfer(
-                    I3(orders[li], orders[li - 1]), self.levels[-2],
-                    self.levels[-1]))
+                self.transfers.append(_ElementTransfer(
+                    interp_3d(orders[li], orders[li - 1], dtype, device),
+                    self.levels[-2], self.levels[-1], self.levels[-2].invm))
 
         # ---- h-coarsening below p=1 ----
         while True:
@@ -1263,7 +1181,7 @@ class ShardedPMG:
                     or bot.op.n_dofs <= h_coarsen_min_dofs):
                 break
             if not np.array_equal(np.sort(np.asarray(self.ess_list[-1])),
-                                  _top_plane(sp_b)):
+                                  _top_plane_dofs(sp_b.dof_dims)):
                 break
             sp_c = sp_b.coarsen()
             if sp_c is None:
@@ -1292,7 +1210,9 @@ class ShardedPMG:
                                      layout="compact")
                     bot = level(bot.op, pt_b, self.ess_list[-1])
                     self.levels[-1] = bot
-                    self.transfers[-1].coarse = bot
+                    tr = self.transfers[-1]
+                    self.transfers[-1] = _ElementTransfer(
+                        tr.I3, self.levels[-2], bot, tr.inv_mult, tr.via)
             if bot.pt.win is not None:
                 bw = bot.pt.win
                 nex_c, ney_c, _ = hs.elem_dims
@@ -1306,7 +1226,7 @@ class ShardedPMG:
                 lat_loc = (bot.pt.loc_of_dof, bot.pt.N_max, win_via)
             pt_c = Partition(sp_c, ndev, part=part_c)
             op_c = laplace_operator(sp_c, dtype, setup_dev)
-            ess_c = _top_plane(sp_c)
+            ess_c = _top_plane_dofs(sp_c.dof_dims)
             lvl_c = level(op_c, pt_c, ess_c)
             pt_via = Partition(hs, ndev, part=part_c, owner=bot.pt.owner,
                                lat_loc=lat_loc,
@@ -1317,8 +1237,8 @@ class ShardedPMG:
             mstack[:, pt_via.N_max] = 1.0
             via.invm = torch.as_tensor(1.0 / comm.local(mstack)).to(
                 device=device, dtype=dtype)
-            self.transfers.append(_ShardedTransfer(I3(1, 2), bot, lvl_c,
-                                                   via=via))
+            self.transfers.append(_ElementTransfer(
+                interp_3d(1, 2, dtype, device), bot, lvl_c, via.invm, via))
             self.levels.append(lvl_c)
             self.ess_list.append(ess_c)
             self.orders = self.orders + [1]
@@ -1342,24 +1262,14 @@ class ShardedPMG:
                     1.0 / diag))
         else:
             raise ValueError(f"unknown lmax_mode {lmax_mode!r}")
-        self.smoothers = [_ShardedChebyshev(lv, lm, degree=smooth_degree)
+        self.smoothers = [ChebyshevSmoother(lv.apply_c, lv.invd, lm,
+                                            degree=smooth_degree)
                           for lv, lm in zip(self.levels, self.lmax)]
-        self.smoothers[-1] = _ShardedChebyshev(
-            self.levels[-1], self.lmax[-1], degree=coarse_cheb_degree)
-
-    def vcycle(self, r: torch.Tensor, li: int = 0) -> torch.Tensor:
-        lv = self.levels[li]
-        sm = self.smoothers[li]
-        if li == len(self.levels) - 1:
-            return sm(r)
-        z = sm(r)
-        tr = self.transfers[li]
-        rc = tr.restrict(r - lv.apply_c(z))
-        zc = self.vcycle(rc, li + 1)
-        z = z + tr.prolong(zc)
-        return sm(r, z0=z)
-
-    __call__ = vcycle
+        cl = self.levels[-1]
+        self.smoothers[-1] = ChebyshevSmoother(cl.apply_c, cl.invd,
+                                               self.lmax[-1],
+                                               degree=coarse_cheb_degree)
+        self.coarse_solve = self.smoothers[-1]
 
 
 def _check_supported(cfg) -> None:
@@ -1534,51 +1444,37 @@ class ShardedProblem:
     def solve_laplace(self, phi_fs: torch.Tensor, phi_warm: torch.Tensor):
         """The Dirichlet Laplace solve with ``phi = phi_fs`` on the free
         surface from the stacked warm start (``lpfem/shard.py:1202-1235``,
-        ``FreeSurfaceOperator.solve_laplace``'s sharded form). Returns the
-        stacked ``phi`` and the solve's ``SolveInfo``."""
-        fso = self.prob.fso
-        lv, hi, pdot = self.fine, self.fine_hi, self.comm.pdot
-        free = self.free
-        pfs_pad = torch.cat([phi_fs, phi_fs.new_zeros(1)])
-        x_bc = phi_fs.new_zeros(self.comm.rows, self.N_max + 1).scatter_(
-            1, self.surf_loc, pfs_pad[self.surf_pos])
-        if self.pmg is not None:
-            precond = self.pmg.vcycle
-        else:
-            precond = lambda r: r * lv.invd                  # noqa: E731
-        x0 = phi_warm * free + x_bc
-        if hi is not None:
-            B = -hi.apply_own(x_bc) * free + x_bc
-            res = pcg_ir(hi.apply_c, lv.apply_c, B, x0, precond_lo=precond,
-                         rtol_sq=fso.cg_rtol_sq, atol_sq=fso.cg_atol_sq,
-                         max_outer=fso.ir_max_outer,
-                         inner_rtol_sq=fso.ir_inner_rtol_sq,
-                         inner_max_iter=fso.cg_max_iter, lo_dtype=lv.dtype,
-                         dot_fn=pdot)
-        else:
-            B = -lv.apply_own(x_bc) * free + x_bc
-            res = pcg(lv.apply_c, B, x0, precond_fn=precond,
-                      rtol_sq=fso.cg_rtol_sq, atol_sq=fso.cg_atol_sq,
-                      max_iter=fso.cg_max_iter, dot_fn=pdot)
-        return res.x, fso._info(res)
+        ``FreeSurfaceOperator.solve_laplace``'s sharded form, in its span
+        and through its ``cg_solve``). Returns the stacked ``phi`` and the
+        solve's ``SolveInfo``."""
+        with span("surface.solve"):
+            lv, hi, free = self.fine, self.fine_hi, self.free
+            pfs_pad = torch.cat([phi_fs, phi_fs.new_zeros(1)])
+            x_bc = phi_fs.new_zeros(self.comm.rows, self.N_max + 1).scatter_(
+                1, self.surf_loc, pfs_pad[self.surf_pos])
+            precond = self.pmg if self.pmg is not None else (
+                lambda r: r * lv.invd)
+            x0 = phi_warm * free + x_bc
+            sop = lv if hi is None else hi
+            B = -sop.apply_own(x_bc) * free + x_bc
+            return self.prob.fso.cg_solve(sop.apply_c, lv.apply_c, B, x0,
+                                          precond, dot_fn=self.comm.pdot)
 
     def _rhs(self, t: float, y: torch.Tensor, aux: SolveCarry):
-        ns = self.NSurf
-        eta, phi_fs = y[:ns], y[ns:]
-        phi, info = self.solve_laplace(phi_fs, aux.phi)
-        deta = self._zderiv_surface(phi)
-        dphi_fs = -self.prob.fso.g * eta
-        rz = self.relax
-        if rz is not None:
-            eta_e, phi_e = rz.targets(t)
-            alpha_gen = min(max(t / (rz.n_ramp * rz.T), 0.0), 1.0)
-            inv_tau = 1.0 / rz.tau
-            gen_w = alpha_gen * rz.cgen * inv_tau
-            deta = deta + gen_w * (eta_e - eta) - rz.cabs * inv_tau * eta
-            dphi_fs = (dphi_fs + gen_w * (phi_e - phi_fs)
-                       - rz.cabs * inv_tau * phi_fs)
-        return torch.cat([deta, dphi_fs]), SolveCarry(
-            phi, aux.stats.update(info))
+        """The stage, as ``FreeSurfaceOperator.__call__`` (its spans
+        ``surface.stage`` and ``surface.top_trace`` too)."""
+        with span("surface.stage"):
+            ns = self.NSurf
+            eta, phi_fs = y[:ns], y[ns:]
+            phi, info = self.solve_laplace(phi_fs, aux.phi)
+            with span("surface.top_trace"):
+                deta = self._zderiv_surface(phi)
+            dphi_fs = -self.prob.fso.g * eta
+            if self.relax is not None:
+                deta, dphi_fs = self.relax.forcing(t, eta, phi_fs, deta,
+                                                   dphi_fs)
+            return torch.cat([deta, dphi_fs]), SolveCarry(
+                phi, aux.stats.update(info))
 
     def initial_state(self, t: float = 0.0):
         """(y0, phi0 stacked) on the device: the problem's initial state."""

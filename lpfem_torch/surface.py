@@ -144,6 +144,20 @@ class RelaxationZones:
         phi_e = self.phi_amp * (s * self.cos_kx - c * self.sin_kx)
         return eta_e, phi_e
 
+    def forcing(self, t: float, eta: torch.Tensor, phi_fs: torch.Tensor,
+                deta: torch.Tensor, dphi_fs: torch.Tensor):
+        """``(deta, dphi_fs)`` with the penalty forcing at stage time ``t``
+        added: towards the target wave in the generation zone (ramped in
+        over ``n_ramp`` periods), towards rest in the absorption zone."""
+        eta_e, phi_e = self.targets(t)
+        alpha_gen = min(max(t / (self.n_ramp * self.T), 0.0), 1.0)
+        inv_tau = 1.0 / self.tau
+        gen_w = alpha_gen * self.cgen * inv_tau
+        deta = deta + gen_w * (eta_e - eta) - self.cabs * inv_tau * eta
+        dphi_fs = (dphi_fs + gen_w * (phi_e - phi_fs)
+                   - self.cabs * inv_tau * phi_fs)
+        return deta, dphi_fs
+
 
 class FreeSurfaceOperator:
     """``(t, y, aux) -> (dy/dt, aux)`` with ``y = [eta; phi_fs]`` on the
@@ -218,22 +232,30 @@ class FreeSurfaceOperator:
             B, _ = sop.constrained_rhs(b, phi_fs, self.ess)
             x0 = phi_warm.clone()
             x0[self.ess] = phi_fs
-            if self.op_hi is not None:
-                res = pcg_ir(self.op_hi.constrained_apply_top,
-                             self.op.constrained_apply_top, B, x0,
-                             precond_lo=self._precond,
-                             rtol_sq=self.cg_rtol_sq,
-                             atol_sq=self.cg_atol_sq,
-                             max_outer=self.ir_max_outer,
-                             inner_rtol_sq=self.ir_inner_rtol_sq,
-                             inner_max_iter=self.cg_max_iter,
-                             lo_dtype=self.op.dtype)
-            else:
-                res = pcg(self.op_solve.constrained_apply_top, B, x0,
-                          precond_fn=self._precond,
-                          rtol_sq=self.cg_rtol_sq, atol_sq=self.cg_atol_sq,
-                          max_iter=self.cg_max_iter)
-            return res.x, self._info(res)
+            lo = self.op if self.op_hi is not None else self.op_solve
+            return self.cg_solve(sop.constrained_apply_top,
+                                 lo.constrained_apply_top, B, x0,
+                                 self._precond)
+
+    def cg_solve(self, apply_hi, apply_lo, B: torch.Tensor,
+                 x0: torch.Tensor, precond, dot_fn=torch.dot):
+        """The solver call, on one device and on shards: ``pcg_ir`` where
+        there is an ``op_hi`` (outer on ``apply_hi``, the system's own
+        apply, inner CG in ``op``'s dtype on ``apply_lo``), else ``pcg`` on
+        ``apply_lo``, with this operator's tolerances and limits. Returns
+        (x, info)."""
+        if self.op_hi is not None:
+            res = pcg_ir(apply_hi, apply_lo, B, x0, precond_lo=precond,
+                         rtol_sq=self.cg_rtol_sq, atol_sq=self.cg_atol_sq,
+                         max_outer=self.ir_max_outer,
+                         inner_rtol_sq=self.ir_inner_rtol_sq,
+                         inner_max_iter=self.cg_max_iter,
+                         lo_dtype=self.op.dtype, dot_fn=dot_fn)
+        else:
+            res = pcg(apply_lo, B, x0, precond_fn=precond,
+                      rtol_sq=self.cg_rtol_sq, atol_sq=self.cg_atol_sq,
+                      max_iter=self.cg_max_iter, dot_fn=dot_fn)
+        return res.x, self._info(res)
 
     def _solve_laplace_ds(self, phi_fs: torch.Tensor, phi_warm):
         """The double-single solve (``lpfem/surface.py:282-319``): the
@@ -284,13 +306,7 @@ class FreeSurfaceOperator:
                 deta = self.zderiv.top_trace(phi)
             dphi_fs = -self.g * eta
             if self.relax is not None:
-                rz = self.relax
-                eta_e, phi_e = rz.targets(t)
-                alpha_gen = min(max(t / (rz.n_ramp * rz.T), 0.0), 1.0)
-                inv_tau = 1.0 / rz.tau
-                gen_w = alpha_gen * rz.cgen * inv_tau
-                deta = deta + gen_w * (eta_e - eta) - rz.cabs * inv_tau * eta
-                dphi_fs = (dphi_fs + gen_w * (phi_e - phi_fs)
-                           - rz.cabs * inv_tau * phi_fs)
+                deta, dphi_fs = self.relax.forcing(t, eta, phi_fs, deta,
+                                                   dphi_fs)
             return torch.cat([deta, dphi_fs]), SolveCarry(
                 phi, aux.stats.update(info))

@@ -305,11 +305,9 @@ def test_vcycle_matches_lpfem(name, tmp_path):
     assert _rel(pt(torch.tensor(r)).numpy(), pl(jnp.asarray(r))) < 1e-12
     # the transfers alone: prolongation and its transpose
     xc = np.random.default_rng(5).standard_normal(pl.levels[1].op.n_dofs)
-    assert _rel(pt.transfers[0].prolong(pt.levels[0], pt.levels[1],
-                                        torch.tensor(xc)).numpy(),
+    assert _rel(pt.transfers[0].prolong(torch.tensor(xc)).numpy(),
                 pl.prolong(0, jnp.asarray(xc))) < 1e-12
-    assert _rel(pt.transfers[0].restrict(pt.levels[0], pt.levels[1],
-                                         torch.tensor(r)).numpy(),
+    assert _rel(pt.transfers[0].restrict(torch.tensor(r)).numpy(),
                 pl.restrict(0, jnp.asarray(r))) < 1e-12
 
 

@@ -15,6 +15,8 @@ counters on the CPU.
   ``multigrid.fine_level_share`` reads it, and nothing without the span.
 - The benchmark's span readers on tiny traced ``run_cell``s, one record a
   run.
+- A sharded run records the same stage, solve and V-cycle spans and the
+  level details as a single-device one (the V-cycle is the same code).
 """
 
 import json
@@ -153,6 +155,36 @@ def test_answers_bit_for_bit_with_recording_on(traced):
 
 
 L0_STAGES = ("presmooth", "residual", "restrict", "prolong", "postsmooth")
+
+
+def test_sharded_run_records_the_vcycle(tmp_path):
+    """One step over two stacked shards of a tiny p-multigrid tank with
+    h-levels: a V-cycle's coarse solve and descent once each, every level
+    above the bottom one its five details once a V-cycle, and the stage and
+    solve spans once a stage."""
+    from lpfem_torch.shard import ShardedProblem
+
+    cfg = lpfem_torch.preset("scaling_base", nx=8, ny=2, nz=4, order=2,
+                             precond="pmg", h_coarsen_min_dofs=0,
+                             cg_rtol_sq=1e-16)
+    sp = ShardedProblem.from_config(cfg, 2, device="cpu")
+    n_lv = len(sp.pmg.levels)
+    assert n_lv > 2
+    with profiling.trace(str(tmp_path)):
+        sp.run(n_steps=1)
+    rec = profiling.record()
+    tab = rec.table()
+    vc = tab["multigrid.vcycle"].calls
+    assert rec.steps == 1 and vc > 0
+    assert tab["multigrid.coarse"].calls == tab["multigrid.lower"].calls == vc
+    assert {k for k in tab if k.startswith("multigrid.L")} == {
+        f"multigrid.L{i}.{s}" for i in range(n_lv - 1) for s in L0_STAGES}
+    assert all(tab[f"multigrid.L{i}.{s}"].calls == vc
+               for i in range(n_lv - 1) for s in L0_STAGES)
+    assert tab["surface.stage"].calls == tab["surface.solve"].calls == 4
+    assert tab["solvers.cg_iteration"].calls == \
+        sp.last_solver_stats.total_iters
+    profiling.reset()
 
 
 def test_vcycle_self_time_is_the_top_level(monkeypatch):

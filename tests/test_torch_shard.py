@@ -10,6 +10,10 @@
   (the periodic tank's x-slabs with the wrap seam, the flagship's), and the
   levels and "via" partitions of the p-multigrid with h-levels (window
   vias at 4 shards, the compact rebuild at 3 shards, compact x-slabs).
+- ``ShardedPMG`` applied once (the single-device smoother, element
+  transfer and V-cycle over the sharded hierarchy) against lpfem's
+  ``ShardedPMG.vcycle`` under ``shard_map`` with lpfem's lambda_max, on
+  the window-via and compact-rebuild hierarchies: 1e-11 of max|z|.
 - ``ShardedLevel.apply_c`` / ``apply_own`` through both exchanges against
   lpfem's ``ShardedLevel`` under ``shard_map``, float64, 1e-12 of max|y|:
   B1's shard mode (window), B2's (the leaning tank's windows) and the
@@ -113,11 +117,9 @@ def test_partition_tables_match_lpfem(name, ndev):
     np.testing.assert_array_equal(b.stack_dof(v), a.stack_dof(v))
 
 
-@pytest.mark.parametrize("case", ["window vias", "compact rebuild",
-                                  "compact x-slabs"])
-def test_pmg_partitions_match_lpfem(case):
-    """Every level's partition, the exchange it picks, and every h-transfer
-    'via' partition of the sharded p-multigrid."""
+def _pmg_pair(case):
+    """(lpfem's sharded p-multigrid, the port's with lpfem's lambda_max,
+    lpfem's partition, lpfem's problem), with h-levels."""
     if case == "compact x-slabs":
         name, kw, ndev = "pf_linear_periodic", dict(nx=12, ny=2, nz=2,
                                                    order=2), 4
@@ -131,7 +133,16 @@ def test_pmg_partitions_match_lpfem(case):
     lpt, tpt = LPartition(lp.space, ndev), Partition(tp.space, ndev)
     lpmg = LShardedPMG(lp, lpt, ndev, h_coarsen_min_dofs=0)
     tpmg = ShardedPMG(tp, tpt, ShardComm(ndev), "cpu",
-                      h_coarsen_min_dofs=0, lmax=[1.0] * len(lpmg.levels))
+                      h_coarsen_min_dofs=0, lmax=lpmg.lmax)
+    return lpmg, tpmg, lpt, lp
+
+
+@pytest.mark.parametrize("case", ["window vias", "compact rebuild",
+                                  "compact x-slabs"])
+def test_pmg_partitions_match_lpfem(case):
+    """Every level's partition, the exchange it picks, and every h-transfer
+    'via' partition of the sharded p-multigrid."""
+    lpmg, tpmg, _, _ = _pmg_pair(case)
     n_p = tpmg.orders.index(1) + 1                 # the p-levels
     assert tpmg.orders == lpmg.orders and len(tpmg.orders) > n_p
     for ll, tl in zip(lpmg.levels, tpmg.levels):
@@ -151,6 +162,35 @@ def test_pmg_partitions_match_lpfem(case):
         assert layouts[:2] == ["window", "window"] and layouts[2] == "compact"
     else:
         assert all(lay == "compact" for lay in layouts)
+
+
+@pytest.mark.parametrize("case", ["window vias", "compact rebuild"])
+def test_sharded_vcycle_matches_lpfem(case):
+    """One application of the port's sharded p-multigrid (the single-device
+    smoother, element transfer and V-cycle over the sharded hierarchy) to a
+    seeded residual against lpfem's ``ShardedPMG.vcycle`` under
+    ``shard_map``, with lpfem's lambda_max, float64, 1e-11 of max|z|."""
+    lpmg, tpmg, lpt, lp = _pmg_pair(case)
+    assert len(tpmg.levels) == len(lpmg.levels) > 3
+    assert tpmg.coarse_solve is tpmg.smoothers[-1]
+    assert tpmg.coarse_solve.degree == 16
+    ess = np.asarray(lp.surf.surf_to_vol)
+    r = np.random.default_rng(3).standard_normal(lp.space.n_dofs)
+    r[ess] = 0.0
+    r_st = lpt.stack_dof(r)
+
+    def dev_fn(r_st, tbs):
+        tbs = jax.tree.map(lambda a: a[0], tbs)
+        return lpmg.vcycle(tbs, r_st[0])[None]
+
+    ndev = lpt.ndev
+    fn = jax.jit(jax.shard_map(dev_fn, mesh=make_device_mesh(ndev),
+                               in_specs=(P("shard"), P("shard")),
+                               out_specs=P("shard"), check_vma=False))
+    z_l = lpt.unstack_dof(np.asarray(fn(jnp.asarray(r_st),
+                                        lpmg.all_tables())))
+    z_t = lpt.unstack_dof(tpmg(torch.tensor(r_st)).numpy())
+    assert np.max(np.abs(z_t - z_l)) < 1e-11 * np.max(np.abs(z_l))
 
 
 def _level_pair(name, ndev, exchange):
