@@ -265,6 +265,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     share of the eager step it gives; and no launch in phase 3's tank
     (dense coarse route).
 
+13. The smoother's steps in one launch each (``kernels.cheb_step``) on
+    vectors of 17,105,920 and 2,179,584 values (the top levels of
+    ``tank_p8.f64_refs2`` / refs 3 and of refs 2), float32 and float64:
+    each mode (the first step from zero and from a start vector, the
+    recurrence step) bit for bit the eager expressions
+    (``cheb_first_reference``, ``cheb_step_reference``) on the card; per
+    mode the kernel's device ms (torch.profiler, the activities per call)
+    and its ms per call from CUDA events (5 chains of 30), the eager
+    chain's device ms and kernels, the byte bound (each operand read once,
+    ``d`` and ``z`` written once, at 3.35 TB/s) and the kernel's achieved
+    bytes per second. Then a whole Chebyshev-4 smoother call on the
+    order-8 tank's top level (B1 at p = 8, float64), from zero and from a
+    start vector, fused against the eager chain: the same bits, device ms
+    and kernels a call.
+
 Phases 3, 4 (float64), 5A, 5B, 6 and 9b each profile one more RK4 step with
 torch.profiler, outside the timed window: device kernel time by category and
 the device's busy share. Each phase's own time is printed.
@@ -303,7 +318,7 @@ LEAN = dict(wave_by="wavelength", wave_lambda=0.5)   # Lx / wave_m
 PATH_B_REF_LEVELS = 2          # 512 -> 32,768 hexes, 2,179,584 dofs
 PATH_C_STEPS = 4
 KERNEL_SOURCES = ("sep_apply", "pa_apply", "lattice_apply", "sep_apply_ds",
-                  "coarse_cheb")
+                  "coarse_cheb", "cheb_step")
 CHAIN = 30
 TOL = {"float32": 1e-5, "float64": 1e-13}
 # The float64 cuSPARSE yardstick at p=4 multiplies a matrix assembled from
@@ -1527,9 +1542,11 @@ def _sync_round_trip_us(reps: int = 200) -> float:
 
 
 def _zero_counts():
-    from lpfem_torch.kernels import (coarse_cheb, lattice_apply, pa_apply,
-                                     sep_apply, sep_apply_ds)
+    from lpfem_torch.kernels import (cheb_step, coarse_cheb, lattice_apply,
+                                     pa_apply, sep_apply, sep_apply_ds)
     coarse_cheb.LAUNCHES.clear()
+    cheb_step.LAUNCHES = 0
+    cheb_step.LAUNCHES_BY_DTYPE.clear()
     sep_apply.LAUNCHES = 0
     sep_apply.LAUNCHES_BY_P.clear()
     pa_apply.LAUNCHES = 0
@@ -1561,11 +1578,13 @@ def _count_vcycles():
 
 
 def _read_counts() -> dict:
-    from lpfem_torch.kernels import (coarse_cheb, lattice_apply, pa_apply,
-                                     sep_apply, sep_apply_ds)
+    from lpfem_torch.kernels import (cheb_step, coarse_cheb, lattice_apply,
+                                     pa_apply, sep_apply, sep_apply_ds)
     return {"sep_apply": sep_apply.LAUNCHES,
             "coarse_cheb": sum(coarse_cheb.LAUNCHES.values()),
             "coarse_cheb_by_dtype": dict(coarse_cheb.LAUNCHES),
+            "cheb_step": cheb_step.LAUNCHES,
+            "cheb_step_by_dtype": dict(cheb_step.LAUNCHES_BY_DTYPE),
             "pa_apply_element": pa_apply.LAUNCHES,
             "pa_apply_affine": pa_apply.LAUNCHES_AFFINE,
             "lattice_affine_apply": lattice_apply.LAUNCHES,
@@ -1622,8 +1641,9 @@ def phase_ss_path(report: dict) -> int:
     if stats.n_solves != 4 * N_STEPS:
         raise AssertionError(f"expected {4 * N_STEPS} solves, ran "
                              f"{stats.n_solves} (the run stopped early)")
-    if launches <= 0:
-        raise AssertionError("the ss.cpp path launched no sep_apply kernel")
+    if launches <= 0 or counts["cheb_step"] <= 0:
+        raise AssertionError(f"the ss.cpp path launched no sep_apply or no "
+                             f"cheb_step kernel: {counts}")
     err_protocol = prob.eta_error_inf(y, t, quad=False)
     print(f"[3] protocol run ends at t = {t:.6f} (T = {prob.t_final:.6f}); "
           f"nodal eta error inf {err_protocol:.3e} (dt = T/{N_STEPS} is "
@@ -3488,6 +3508,129 @@ def phase_coarse_cheb(report: dict) -> dict:
     return out
 
 
+# passes over the vector of each step mode: the kernel's (operands read
+# once, d and z written once) and the eager chain's
+CHEB_PASSES = {"zero": (4, 9), "z0": (6, 11), "step": (7, 16)}
+
+
+def _eager_smoother(sm, r, z0=None):
+    """``sm(r, z0)`` with each step's eager expressions on the card."""
+    from lpfem_torch.kernels import cheb_step as kcs
+    d, z = kcs.cheb_first_reference(r, sm.inv_diag, sm.theta, z0,
+                                    None if z0 is None else sm.apply_fn(z0))
+    for c1, c2 in sm.coefs:
+        d, z = kcs.cheb_step_reference(r, sm.apply_fn(z), sm.inv_diag, d, z,
+                                       c1, c2)
+    return z
+
+
+def phase_cheb_step(report: dict) -> dict:
+    import torch
+    import lpfem_torch
+    from lpfem_torch.kernels import cheb_step as kcs
+    from lpfem_torch.kernels.coarse_cheb import chebyshev_coefficients
+    from lpfem_torch.multigrid import ChebyshevSmoother, _Level
+    from lpfem_torch.operators import SeparableLattice
+    from lpfem_torch.space import LatticeSpace
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    theta = 1.5121337882677715    # float32 1 / theta rounds two ways
+    c1, c2 = chebyshev_coefficients(theta, 1.4145, 4)[1]
+    rows = []
+    for n in (17_105_920, 2_179_584):
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).removeprefix("torch.")
+            v = {k: torch.randn(n, generator=gen, device="cuda",
+                                dtype=dtype)
+                 for k in ("r", "Az", "d", "z", "z0")}
+            v["inv_diag"] = torch.rand(n, generator=gen, device="cuda",
+                                       dtype=dtype) + 0.5
+            r, Az, invD, z0 = v["r"], v["Az"], v["inv_diag"], v["z0"]
+            d, z = v["d"], v["z"]
+            fused = {
+                "zero": lambda: kcs.cheb_first(r, invD, theta, d, z),
+                "z0": lambda: kcs.cheb_first(r, invD, theta, d, z, z0=z0,
+                                             Az0=Az),
+                "step": lambda: kcs.cheb_step(r, Az, invD, d, z, c1, c2)}
+            eager = {
+                "zero": lambda: kcs.cheb_first_reference(r, invD, theta),
+                "z0": lambda: kcs.cheb_first_reference(r, invD, theta, z0,
+                                                       Az),
+                "step": lambda: kcs.cheb_step_reference(r, Az, invD, d, z,
+                                                        c1, c2)}
+            for mode, (kp, ep) in CHEB_PASSES.items():
+                d_ref, z_ref = eager[mode]()
+                fused[mode]()
+                torch.cuda.synchronize()
+                same = torch.equal(d, d_ref) and torch.equal(z, z_ref)
+                if not same:
+                    raise AssertionError(
+                        f"cheb_step {mode} {name} n = {n}: not the eager "
+                        f"bits (d {float((d - d_ref).abs().max()):.3e}, z "
+                        f"{float((z - z_ref).abs().max()):.3e})")
+                del d_ref, z_ref
+                size = r.element_size()
+                per = _per_call(_profile_calls(fused[mode], [()]))
+                ev = _time_chain(fused[mode], [()])
+                bound_ms, _ = _bound(kp * n * size, 0, 1.0)
+                ms = per["launch_ms"]
+                # the eager chain by CUDA events: the profiler drops some
+                # of its launches, and two of them share a kernel's name
+                row = dict(n=n, dtype=name, mode=mode, same_bits=same,
+                           ms=ms, events_ms=ev,
+                           kernels_per_call=per["kernels_per_call"],
+                           eager_ms=_time_chain(eager[mode], [()]),
+                           bound_ms=bound_ms,
+                           eager_bound_ms=_bound(ep * n * size, 0, 1.0)[0],
+                           tb_per_s=kp * n * size / ms / 1e9,
+                           share=bound_ms / ms)
+                rows.append(row)
+                print(f"[13] {mode:4s} {name} n = {n}: {ms:.4f} ms device "
+                      f"({row['kernels_per_call']:.1f} kernels), "
+                      f"{ev:.4f} ms events, bound {bound_ms:.4f} ms "
+                      f"({kp} passes), {row['tb_per_s']:.3f} TB/s = "
+                      f"{100 * row['share']:.1f} % of 3.35; eager "
+                      f"{row['eager_ms']:.4f} ms (events; {ep} passes, "
+                      f"bound {row['eager_bound_ms']:.4f} ms); same bits")
+            del v, r, Az, invD, z0, d, z, fused, eager
+            torch.cuda.empty_cache()
+
+    # a whole Chebyshev-4 call on the order-8 tank's top level
+    sp = LatticeSpace.from_config(lpfem_torch.preset(
+        "scaling_base", order=8, ref_levels=2))
+    lv = _Level(SeparableLattice(sp, torch.float64, "cuda"))
+    sm = ChebyshevSmoother(lv.apply_c, lv.inv_diag, 2.9, degree=4)
+    r = torch.randn(lv.op.n_dofs, generator=gen, device="cuda",
+                    dtype=torch.float64) * lv.free
+    z0 = torch.randn(lv.op.n_dofs, generator=gen, device="cuda",
+                     dtype=torch.float64) * lv.free
+    calls = {}
+    for start, args in (("zero", (r,)), ("z0", (r, z0))):
+        if not torch.equal(sm(*args), _eager_smoother(sm, *args)):
+            raise AssertionError(f"Chebyshev-4 from {start}: not the eager "
+                                 f"chain's bits")
+        before = kcs.LAUNCHES
+        sm(*args)
+        steps = kcs.LAUNCHES - before
+        calls[start] = dict(
+            fused_ms=_time_chain(sm, [args]),
+            eager_ms=_time_chain(lambda *a: _eager_smoother(sm, *a),
+                                 [args]), step_launches=steps)
+        c = calls[start]
+        print(f"[13] Chebyshev-4 from {start} on {lv.op.n_dofs} dofs (p = "
+              f"8, float64), CUDA events: fused {c['fused_ms']:.4f} ms a "
+              f"call ({steps} step launches), eager {c['eager_ms']:.4f} "
+              f"ms; same bits")
+    ptxas = {k: v for k, v in report.get("ptxas", {}).items()
+             if "cheb_step_kernel" in k}
+    print(f"[13] ptxas {ptxas}")
+    out = dict(rows=rows, smoother_p8=calls, ptxas=ptxas)
+    report["cheb_step"] = out
+    del lv, sm, r, z0
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import warnings
     # torch's notes that sparse CSR is beta / unchecked (the yardsticks)
@@ -3535,6 +3678,7 @@ def main() -> int:
     timed("10g drivers", phase_new_drivers)
     ranks = timed("11 ranks", phase_ranks)
     coarse = timed("12 coarse solve", phase_coarse_cheb)
+    cheb = timed("13 smoother steps", phase_cheb_step)
     report["total_s"] = time.perf_counter() - t_start
     element_orders = {
         "pa_apply_element": set(report["diffraction"]["float64"][
@@ -3611,6 +3755,14 @@ def main() -> int:
              vcycle_activities={k: v["activities"] for k, v in
                                 coarse["vcycle"].items()},
              smem_bytes=coarse["smem_bytes"], ptxas=coarse["ptxas"]),
+        dict(name="cheb_step", route="cuda",
+             source="lpfem_torch/csrc/cheb_step.cu",
+             replaces="none: the smoother's eager vector updates",
+             launches=report["ss_path"]["launches"]["cheb_step"],
+             max_abs_err=0.0, launches_by_dtype=report["ss_path"]["launches"][
+                 "cheb_step_by_dtype"],
+             rows=cheb["rows"], smoother_p8=cheb["smoother_p8"],
+             ptxas=cheb["ptxas"]),
         dict(name="sep_apply_ds", route="cuda",
              source="lpfem_torch/csrc/sep_apply_ds.cu",
              replaces="lpfem/kernels/sep_apply_ds.py:291",

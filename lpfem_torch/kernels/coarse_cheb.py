@@ -242,8 +242,7 @@ class CoarseChebyshev:
         self.chebyshev = chebyshev
         self.clusters = clusters
         self.theta = chebyshev.theta
-        self.coefs = chebyshev_coefficients(chebyshev.theta, chebyshev.delta,
-                                            chebyshev.degree)
+        self.coefs = chebyshev.coefs
         self.n_dofs = op.n_dofs
         self.dtype, dev = op.dtype, op.device
         t = partition(op.space.elem_dofs, op.fold.cpu().numpy(),

@@ -48,6 +48,7 @@ import torch
 
 from .elements import basis_1d, lagrange_eval
 from .kernels import coarse_cheb
+from .kernels.cheb_step import cheb_first, cheb_step
 from .operators import laplace_operator
 from .profiling import detail, span
 
@@ -73,7 +74,12 @@ def estimate_lmax(apply_fn, inv_diag: torch.Tensor, iters: int = 20,
 class ChebyshevSmoother:
     """Fixed-degree Chebyshev acceleration of Jacobi, z ~= A^-1 r: a linear,
     symmetric positive polynomial in D^-1 A (valid as a CG preconditioner and
-    as an MG smoother), three-term recurrence on [lmax/30, lmax]."""
+    as an MG smoother), three-term recurrence on [lmax/30, lmax].
+
+    Each step is the level's apply followed by one vector update
+    (``kernels.cheb_step``: one launch a step on a CUDA tensor, the eager
+    expressions on a CPU tensor) into ``d`` and ``z``, allocated once a
+    call; ``coefs`` are ``coarse_cheb.chebyshev_coefficients``'."""
 
     def __init__(self, apply_fn, inv_diag: torch.Tensor, lmax: float,
                  degree: int = 3, lmin_frac: float = 1.0 / 30.0):
@@ -84,26 +90,19 @@ class ChebyshevSmoother:
         lmin = lmin_frac * lmax
         self.theta = (lmax + lmin) / 2.0
         self.delta = (lmax - lmin) / 2.0
+        self.coefs = coarse_cheb.chebyshev_coefficients(self.theta,
+                                                        self.delta, degree)
 
     def __call__(self, r: torch.Tensor, z0: torch.Tensor | None = None):
-        """z ~= A^-1 r (``z0``: initial guess, used by the V-cycle)."""
+        """z ~= A^-1 r (``z0``: initial guess, used by the V-cycle; neither
+        ``r`` nor ``z0`` is written)."""
         A, invD = self.apply_fn, self.inv_diag
-        theta, delta = self.theta, self.delta
-        if z0 is None:
-            res = r
-            z = torch.zeros_like(r)
-        else:
-            z = z0
-            res = r - A(z)
-        sigma = theta / delta
-        rho = 1.0 / sigma
-        d = invD * res / theta
-        z = z + d
-        for _ in range(self.degree - 1):
-            rho_new = 1.0 / (2.0 * sigma - rho)
-            d = rho_new * rho * d + (2.0 * rho_new / delta) * (invD * (r - A(z)))
-            z = z + d
-            rho = rho_new
+        d = torch.empty_like(r)
+        z = torch.empty_like(r)
+        cheb_first(r, invD, self.theta, d, z, z0=z0,
+                   Az0=None if z0 is None else A(z0))
+        for c1, c2 in self.coefs:
+            cheb_step(r, A(z), invD, d, z, c1, c2)
         return z
 
 

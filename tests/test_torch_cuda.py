@@ -35,6 +35,16 @@ memory takes the eager route. B1 at p = 8 on the benchmark's order-8 tank
 float32, the same bits twice. B1's tensor-core route (``-k tensor_cores``,
 p = 8 in float64 on DMMA) on edge lattices, the stationary tank and in
 shard mode: 1e-13 of max|y|, the same bits twice, its launches counted.
+The smoother's fused steps (``-k cheb``, ``kernels.cheb_step``): bit for
+bit (``torch.equal``) the eager expressions on the card, on every smoothed
+level of the refs-2 tank hierarchy and of the study's p = 4 and p = 2
+levels, in float32 and float64, from zero and from a start vector; on
+vectors of 1, 7, 5,440 and 38,017 values in each mode, also as views one
+element in (all operands alike, and one alone); a stacked sharded V-cycle
+against the same V-cycle with the eager smoother, 1e-12 of max|z| in
+float64 and 1e-5 with the float32 inner hierarchy (the exchange's
+scatter-adds sum in no fixed order); profiled, ``degree`` launches a
+smoother call and no PyTorch elementwise kernel.
 """
 
 import functools
@@ -48,13 +58,14 @@ from lpfem_torch.cylmesh import make_half_cylinder_tank
 from lpfem_torch.ds import DS, SeparableDS, ds_from_f64, ds_to_f64
 from lpfem_torch.experiments.diffraction import build_problem
 from lpfem_torch.experiments.leaning_tank import leaning_tank
+from lpfem_torch.kernels import cheb_step as kcs
 from lpfem_torch.kernels import coarse_cheb as kcc
 from lpfem_torch.kernels import lattice_apply as klat
 from lpfem_torch.kernels import pa_apply as kpa
 from lpfem_torch.kernels import sep_apply as ksep
 from lpfem_torch.kernels import sep_apply_ds as kds
 from lpfem_torch.mesh import save_mfem
-from lpfem_torch.multigrid import PMultigrid
+from lpfem_torch.multigrid import ChebyshevSmoother, PMultigrid
 from lpfem_torch.operators import (AffineLatticeLaplace, ElementLaplace,
                                    SeparableLattice)
 from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace, grid_lines
@@ -1098,3 +1109,223 @@ def test_coarse_route_falls_back_past_the_budget(cuda):
     pm = PMultigrid(op, h_coarsen_min_dofs=10 ** 9)
     assert pm.coarse_route == "chebyshev"
     assert not kcc.fits(35328, 45355, 1, 2, torch.float64, op.fold.shape[1])
+
+
+def _eager_chebyshev(sm, r, z0=None):
+    """The smoother's eager expressions as they were before each step
+    became one launch (frozen; ``tests/test_torch_multigrid.py`` holds the
+    same copy)."""
+    A, invD = sm.apply_fn, sm.inv_diag
+    theta, delta = sm.theta, sm.delta
+    if z0 is None:
+        res = r
+        z = torch.zeros_like(r)
+    else:
+        z = z0
+        res = r - A(z)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    d = invD * res / theta
+    z = z + d
+    for _ in range(sm.degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = rho_new * rho * d + (2.0 * rho_new / delta) * (invD * (r - A(z)))
+        z = z + d
+        rho = rho_new
+    return z
+
+
+@functools.lru_cache(maxsize=None)
+def _tank_refs2_pmg(dtype):
+    """The refs-2 tank's p-multigrid at order 4 (Chebyshev-4), as the
+    benchmark's ``ss_tank_p4.refs2`` builds it."""
+    sp = LatticeSpace.from_config(lpfem_torch.preset(
+        "scaling_base", order=4, ref_levels=2))
+    return PMultigrid(SeparableLattice(sp, dtype, "cuda"), smooth_degree=4)
+
+
+def _rand(n, seed, dtype, device):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(n, generator=gen, dtype=torch.float64).to(
+        device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["zero", "z0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("hierarchy", ["tank_refs2", "study"])
+def test_cheb_fused_smoother_equals_eager_chain(cuda, hierarchy, dtype,
+                                                start):
+    """Every smoothed level: the tank's 2,179,584 / 282,880 / 38,016 dofs
+    (B1 at p = 4, 2, 1), the study's p = 4 and p = 2 (B3b)."""
+    if hierarchy == "tank_refs2":
+        pm = _tank_refs2_pmg(dtype)
+        assert [lv.op.n_dofs for lv in pm.levels[:-1]] == [2179584, 282880,
+                                                           38016]
+    else:
+        pm = _study_pmg(4, dtype)
+        assert pm.orders == [4, 2, 1]
+    for i, (lv, sm) in enumerate(zip(pm.levels[:-1], pm.smoothers)):
+        r = _rand(lv.op.n_dofs, i, dtype, cuda) * lv.free
+        z0 = (None if start == "zero"
+              else _rand(lv.op.n_dofs, 10 + i, dtype, cuda) * lv.free)
+        r_in = r.clone()
+        before = kcs.LAUNCHES_BY_DTYPE.get(str(dtype)[6:], 0)
+        z = sm(r, z0=z0)
+        assert kcs.LAUNCHES_BY_DTYPE[str(dtype)[6:]] == before + sm.degree
+        z_ref = _eager_chebyshev(sm, r, z0)
+        assert torch.equal(z, z_ref), (i, float((z - z_ref).abs().max()))
+        assert torch.equal(r, r_in)
+
+
+def _step_operands(n, dtype, device, offset):
+    """The operands of a step on ``n`` values, each a view ``offset[k]``
+    elements into its own buffer."""
+    names = ["r", "Az", "inv_diag", "d", "z", "z0"]
+    ops = {}
+    for k, name in enumerate(names):
+        buf = _rand(n + 1, 20 + k, dtype, device)
+        if name == "inv_diag":
+            buf = buf.abs() + 0.5
+        ops[name] = buf[offset[k]:offset[k] + n]
+    return ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("views", ["aligned", "all one in", "r one in"])
+@pytest.mark.parametrize("n", [1, 7, 5440, 38017])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cheb_step_kernel_equals_eager_expressions(cuda, dtype, n, views):
+    """Each mode on its own, against the eager expressions; the vector
+    form with a scalar head and tail, and the scalar form where one operand
+    is off by another amount."""
+    offset = {"aligned": [0] * 6, "all one in": [1] * 6,
+              "r one in": [1, 0, 0, 0, 0, 0]}[views]
+    # a theta whose float32 reciprocal differs as rounded from double and
+    # as taken in float: the eager division takes the first
+    theta = 1.5121337882677715
+    c1, c2 = kcc.chebyshev_coefficients(theta, 1.2, 4)[1]
+    for mode in ("zero", "z0", "step"):
+        o = _step_operands(n, dtype, cuda, offset)
+        r, Az, invD, z0 = o["r"], o["Az"], o["inv_diag"], o["z0"]
+        d, z = o["d"], o["z"]
+        before = kcs.LAUNCHES
+        if mode == "zero":
+            d_ref = invD * r / theta
+            z_ref = torch.zeros_like(r) + d_ref
+            kcs.cheb_first(r, invD, theta, d, z)
+        elif mode == "z0":
+            d_ref = invD * (r - Az) / theta
+            z_ref = z0 + d_ref
+            kcs.cheb_first(r, invD, theta, d, z, z0=z0, Az0=Az)
+        else:
+            d_ref = c1 * d + c2 * (invD * (r - Az))
+            z_ref = z + d_ref
+            kcs.cheb_step(r, Az, invD, d, z, c1, c2)
+        assert kcs.LAUNCHES == before + 1
+        assert torch.equal(d, d_ref), (mode, float((d - d_ref).abs().max()))
+        assert torch.equal(z, z_ref), (mode, float((z - z_ref).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12), ("mixed", 1e-5)])
+def test_cheb_sharded_vcycle_matches_eager_smoother(cuda, dtype, tol,
+                                                    monkeypatch):
+    """One V-cycle of the sharded p-multigrid over 4 stacked windows (its
+    h-levels and Chebyshev-16 coarse solve included) with the fused
+    smoother steps against the same V-cycle with the eager ones."""
+    from lpfem_torch.shard import ShardedProblem
+    cfg = lpfem_torch.preset("scaling_base", nx=8, ny=2, nz=8, order=4,
+                             precond="pmg", h_coarsen_min_dofs=0,
+                             dtype=dtype)
+    sp = ShardedProblem(lpfem_torch.Problem(cfg, cuda), 4)
+    pm = sp.pmg
+    assert len(pm.levels) > 3 and pm.coarse_solve.degree == 16
+    lv = pm.levels[0]
+    r = sp.stack_state(_rand(sp.prob.op.n_dofs, 5, torch.float64, "cpu")
+                       .numpy()).to(lv.invd.dtype) * lv.free
+    before = kcs.LAUNCHES
+    z = pm(r)
+    launched = kcs.LAUNCHES - before
+    assert launched == (2 * sum(s.degree for s in pm.smoothers[:-1])
+                        + pm.coarse_solve.degree)
+    monkeypatch.setattr(ChebyshevSmoother, "__call__", _eager_chebyshev)
+    z_ref = pm(r)
+    assert kcs.LAUNCHES == before + launched
+    rel = float((z - z_ref).abs().max() / z_ref.abs().max())
+    assert rel < tol, rel
+
+
+# Profiles one case in a fresh process: within a process that has already
+# profiled, torch.profiler delivers device records left from before the
+# window and loses some of the window's own (seen on the H100 after this
+# file's earlier profiles)
+_CHEB_PROFILE = r"""
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+import lpfem_torch
+from lpfem_torch.kernels import cheb_step as kcs
+from lpfem_torch.multigrid import PMultigrid
+from lpfem_torch.operators import SeparableLattice
+from lpfem_torch.space import LatticeSpace
+
+what, calls = sys.argv[1], 5
+sp = LatticeSpace.from_config(lpfem_torch.preset(
+    "scaling_base", order=4, ref_levels=2))
+pm = PMultigrid(SeparableLattice(sp, torch.float64, "cuda"), smooth_degree=4)
+gen = torch.Generator().manual_seed(6)
+lv, sm = pm.levels[1], pm.smoothers[1]
+r = torch.randn(lv.op.n_dofs, generator=gen, dtype=torch.float64).cuda() \
+    * lv.free
+r0 = torch.randn(pm.levels[0].op.n_dofs, generator=gen,
+                 dtype=torch.float64).cuda() * pm.levels[0].free
+sm(r, z0=sm(r))
+pm(r0)                                              # build and load first
+torch.cuda.synchronize()
+before = kcs.LAUNCHES
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.cuda._sleep(2_000_000)    # the window's first events can drop
+    for _ in range(calls):
+        if what == "smoother":
+            sm(r, z0=sm(r))
+        else:
+            pm(r0)
+    torch.cuda.synchronize()
+print(json.dumps(dict(
+    device={e.key: e.count for e in prof.key_averages()
+            if e.device_time_total > 0 and "spin_kernel" not in e.key},
+    launched=kcs.LAUNCHES - before, calls=calls, degree=sm.degree,
+    smoothed=len(pm.levels) - 1)))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["smoother", "vcycle"])
+def test_cheb_smoother_is_degree_launches_and_no_elementwise(cuda, what):
+    """Profiled in a fresh process: a smoother call on a B1 level (the
+    refs-2 tank's p = 2) is ``degree`` launches of the step kernel beside
+    its applies, with no PyTorch elementwise kernel, memset or copy; a
+    V-cycle of the refs-2 tank makes ``degree`` step launches for each
+    smoothed level and smoother call. The counter and the profiler
+    agree."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    out = subprocess.run([sys.executable, "-c", _CHEB_PROFILE, what],
+                         cwd=Path(__file__).resolve().parent.parent,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    device, calls, degree = res["device"], res["calls"], res["degree"]
+    steps = sum(c for k, c in device.items() if "cheb_step_kernel" in k)
+    assert res["launched"] == steps, device
+    if what == "smoother":
+        assert steps == calls * 2 * degree, device
+        assert all("cheb_step_kernel" in k or "sep_tile_kernel" in k
+                   for k in device), device
+        applies = sum(c for k, c in device.items() if "sep_tile_kernel" in k)
+        assert applies == calls * (2 * degree - 1), device
+    else:
+        assert steps == calls * res["smoothed"] * 2 * degree, device

@@ -12,6 +12,14 @@ p = 1 level: its plain mirror (the kernel's partition, per-block E-vectors,
 fold in holder order and update) against the eager Chebyshev-16 from zero,
 1e-13 relative to max|z| in float64 and 1e-5 in float32 (other summation
 orders over 16 steps); its tables exactly.
+
+The smoother's steps (``kernels.cheb_step``): on CPU tensors the wrapper's
+plain path equals, bit for bit (``torch.equal``), a frozen copy of the
+eager expressions the smoother ran before the steps became one launch each,
+from zero and from a start vector, in float32 and float64, at degrees 1,
+3, 4 and 16; the smoother's coefficients are
+``coarse_cheb.chebyshev_coefficients``' (the fused coarse solve takes the
+same list); the wrapper raises on what the kernel does not take.
 """
 
 import functools
@@ -28,8 +36,10 @@ from lpfem.space import H1Space, SurfaceSpace as LSurfaceSpace
 
 from lpfem_torch import convert
 from lpfem_torch.cylmesh import make_half_cylinder_tank
+from lpfem_torch.kernels import cheb_step as kcs
 from lpfem_torch.kernels import coarse_cheb as kcc
-from lpfem_torch.multigrid import ChebyshevSmoother, PMultigrid, estimate_lmax
+from lpfem_torch.multigrid import (ChebyshevSmoother, PMultigrid, _Level,
+                                   estimate_lmax)
 from lpfem_torch.operators import ElementLaplace, SeparableLattice, _fold_table
 from lpfem_torch.space import CurvedLatticeSpace, LatticeSpace, grid_lines
 
@@ -129,6 +139,7 @@ def test_coarse_cheb_mirror_matches_chebyshev(dtype, tol, clusters):
                            dtype=dtype) * cl.free):
         z_ref = cheb(r)
         before = dict(kcc.LAUNCHES)
+        assert cc.coefs is cheb.coefs           # one list, derived once
         z = cc(r)                                 # CPU tensors: the mirror
         assert kcc.LAUNCHES == before             # and no kernel launch
         rel = float((z - z_ref).abs().max() / z_ref.abs().max())
@@ -201,3 +212,111 @@ def test_coarse_route(case):
 ])
 def test_coarse_cheb_fits(ne, n_dofs, p, q, dtype, mult, want):
     assert kcc.fits(ne, n_dofs, p, q, dtype, mult) == want
+
+
+def _eager_chebyshev(sm, r, z0=None):
+    """The smoother's eager expressions as they were before each step
+    became one launch (frozen)."""
+    A, invD = sm.apply_fn, sm.inv_diag
+    theta, delta = sm.theta, sm.delta
+    if z0 is None:
+        res = r
+        z = torch.zeros_like(r)
+    else:
+        z = z0
+        res = r - A(z)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    d = invD * res / theta
+    z = z + d
+    for _ in range(sm.degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = rho_new * rho * d + (2.0 * rho_new / delta) * (invD * (r - A(z)))
+        z = z + d
+        rho = rho_new
+    return z
+
+
+@functools.lru_cache(maxsize=None)
+def _tank_level(dtype):
+    """The top level of the small tank at order 2, constrained."""
+    ls = LatticeSpace((grid_lines(NX, 1.0), grid_lines(NY, 0.1),
+                       grid_lines(NZ, 1 / (2 * np.pi))), P,
+                      (True, False, False))
+    return _Level(SeparableLattice(ls, dtype, "cpu"))
+
+
+@pytest.mark.parametrize("start", ["zero", "z0"])
+@pytest.mark.parametrize("degree", [1, 3, 4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_smoother_steps_equal_the_frozen_eager_chain(dtype, degree, start):
+    lv = _tank_level(dtype)
+    sm = ChebyshevSmoother(lv.apply_c, lv.inv_diag, 2.7, degree=degree)
+    gen = torch.Generator().manual_seed(degree)
+    r = torch.randn(lv.op.n_dofs, generator=gen, dtype=torch.float64)
+    r = r.to(dtype) * lv.free
+    z0 = None if start == "zero" else torch.randn(
+        lv.op.n_dofs, generator=gen, dtype=torch.float64).to(dtype) * lv.free
+    r_in = r.clone()
+    z0_in = None if z0 is None else z0.clone()
+    before = (kcs.LAUNCHES, dict(kcs.LAUNCHES_BY_DTYPE))
+    z = sm(r, z0=z0)
+    assert (kcs.LAUNCHES, kcs.LAUNCHES_BY_DTYPE) == before   # plain path
+    z_ref = _eager_chebyshev(sm, r, z0)
+    assert z.dtype == dtype and torch.equal(z, z_ref)
+    # neither r nor the start vector is written
+    assert torch.equal(r, r_in)
+    assert z0 is None or torch.equal(z0, z0_in)
+
+
+@pytest.mark.parametrize("degree", [1, 3, 4, 16])
+def test_smoother_coefficients_are_chebyshev_coefficients(degree):
+    sm = ChebyshevSmoother(lambda v: v, torch.ones(4), 3.3, degree=degree)
+    assert sm.coefs == kcc.chebyshev_coefficients(sm.theta, sm.delta, degree)
+    sigma = sm.theta / sm.delta
+    rho = 1.0 / sigma
+    want = []
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        want.append((rho_new * rho, 2.0 * rho_new / sm.delta))
+        rho = rho_new
+    assert sm.coefs == want
+
+
+def _bad_operands(case):
+    """(function, args, kwargs, exception) of one operand the wrapper must
+    refuse."""
+    r = torch.randn(12, dtype=torch.float64)
+    ok = dict(inv_diag=torch.rand(12, dtype=torch.float64),
+              d=torch.empty(12, dtype=torch.float64),
+              z=torch.empty(12, dtype=torch.float64))
+    az = torch.randn(12, dtype=torch.float64)
+    if case == "strided r":
+        r = torch.randn(24, dtype=torch.float64)[::2]
+    elif case == "strided z":
+        ok["z"] = torch.empty(24, dtype=torch.float64)[::2]
+    elif case == "shape":
+        ok["d"] = torch.empty(13, dtype=torch.float64)
+    elif case == "2-d shape":
+        ok["inv_diag"] = ok["inv_diag"].reshape(3, 4)
+    elif case == "dtype":
+        az = az.float()
+    elif case == "float16":
+        r = r.half()
+        az = az.half()
+        ok = {k: v.half() for k, v in ok.items()}
+    if case == "z0 without Az0":
+        return (kcs.cheb_first, (r, ok["inv_diag"], 1.5, ok["d"], ok["z"]),
+                dict(z0=torch.zeros(12, dtype=torch.float64)), ValueError)
+    exc = TypeError if case == "float16" else ValueError
+    return (kcs.cheb_step, (r, az, ok["inv_diag"], ok["d"], ok["z"], 0.5,
+                            0.25), {}, exc)
+
+
+@pytest.mark.parametrize("case", ["strided r", "strided z", "shape",
+                                  "2-d shape", "dtype", "float16",
+                                  "z0 without Az0"])
+def test_cheb_step_wrapper_raises(case):
+    fn, args, kwargs, exc = _bad_operands(case)
+    with pytest.raises(exc):
+        fn(*args, **kwargs)
